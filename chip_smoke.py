@@ -12,11 +12,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
 4. path parity: the default-width FastSpeech2 stages on CUDA (kernels)
    against the same weights on the CPU (plain versions);
 5. serve: ``SynthesisEngine.from_random(seed=0)`` at default width answers a
-   few requests; the kernels' launch counts must rise in that run, and the
-   short request must match the CPU engine's output;
-6. profile: one long request under ``torch.profiler`` (device busy share,
+   few requests; the kernels' launch counts must rise in that run, and each
+   kernel is held against its plain version on the very inputs that run gave
+   it (one per shape);
+6. serve parity: the longest request, which launches the kernels, on CUDA
+   against the same engine on the CPU (plain versions), both started from the
+   same bucket-estimator state;
+7. profile: one long request under ``torch.profiler`` (device busy share,
    the kernels that take most device time);
-7. a JSON line of every kernel, then the JSON result as the last line.
+8. a JSON line of every kernel, then the JSON result as the last line.
 
 It imports nothing of JAX.  Without CUDA it exits non-zero and prints no result.
 """
@@ -84,10 +88,11 @@ KERNELS = ("flash_attention",)
 
 
 def build() -> None:
-    from e2e_tts_tpu_torch.kernels.build import build as build_all
+    from e2e_tts_tpu_torch.kernels.build import library
 
     t0 = time.perf_counter()
-    build_all(KERNELS)
+    for name in KERNELS:
+        library(name)
     log(f"build: {len(KERNELS)} kernel(s) in {time.perf_counter() - t0:.1f} s")
 
 
@@ -102,12 +107,15 @@ ATTN_SHAPES = (  # (BH, T, D, kv_lens); the first three are the decoder's at def
 )
 
 
-def attention_bound(BH, T, D, lens):
-    """Least time (ms) for the work these inputs need: every query row against
-    its kv_len keys, 2 FMA-flops per multiply-add in q k^T and in p v; q, k, v
-    read once and the output written once."""
-    flops = 4.0 * T * D * float(sum(lens))
-    nbytes = 4.0 * (4 * BH * T * D + BH)
+def attention_bound(D, lens):
+    """Least time (ms) for the work these inputs need.  Only the valid rows
+    (t < kv_len) mean anything, so: each valid query row against its kv_len
+    keys, 2 flops per multiply-add in q k^T and in p v (4 D kv_len^2 per
+    head); the valid rows of q, k, v read once and of the output written
+    once, and kv_lens read."""
+    n = np.asarray(lens, np.float64)
+    flops = 4.0 * D * float((n * n).sum())
+    nbytes = 4.0 * (4 * D * float(n.sum()) + len(n))
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -138,7 +146,7 @@ def check_attention():
             plain_ms=time_ms(lambda: attention_plain(q, k, v, kv)),
             library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=mask)),
         )
-        row["bound_ms"], row["bound_by"] = attention_bound(BH, T, D, lens)
+        row["bound_ms"], row["bound_by"] = attention_bound(D, lens)
         rows.append(row)
         log("flash_attention " + json.dumps(row))
     return rows
@@ -213,6 +221,7 @@ REQUESTS = (
 
 
 def serve():
+    import e2e_tts_tpu_torch.nn.transformer as transformer
     from e2e_tts_tpu_torch.kernels.flash_attention import flash_attention
     from e2e_tts_tpu_torch.serve.engine import SynthesisEngine
 
@@ -223,38 +232,87 @@ def serve():
     for text in REQUESTS:  # warm-up pass, not counted
         eng.synthesize(text)
 
+    # the counted run keeps a copy of the kernel's first inputs at each shape
+    seen = {}
+
+    def recording(q, k, v, kv_lens):
+        if tuple(q.shape) not in seen:
+            seen[tuple(q.shape)] = tuple(t.clone() for t in (q, k, v, kv_lens))
+        return flash_attention(q, k, v, kv_lens)
+
+    transformer.flash_attention = recording
     flash_attention.launches = 0
-    outputs, stats = [], []
     torch.cuda.reset_peak_memory_stats()
-    for text in REQUESTS:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        audio = eng.synthesize(text)
-        sec = time.perf_counter() - t0
-        n_seqs = len(eng.prepare_request(text)[0])
-        body = len(audio) - n_seqs * gap
-        if audio.dtype != np.int16 or body <= 0 or body % eng.hop_length:
-            raise AssertionError(f"bad audio for {text[:30]!r}: {audio.dtype} {len(audio)}")
-        dur = len(audio) / eng.sample_rate
-        stats.append(dict(chars=len(text), chunks=n_seqs, audio_s=round(dur, 3),
-                          seconds=round(sec, 4), rtf=round(sec / dur, 5)))
-        outputs.append(audio)
-        log("serve " + json.dumps(stats[-1]))
+    try:
+        for text in REQUESTS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            audio = eng.synthesize(text)
+            sec = time.perf_counter() - t0
+            n_seqs = len(eng.prepare_request(text)[0])
+            body = len(audio) - n_seqs * gap
+            if audio.dtype != np.int16 or body <= 0 or body % eng.hop_length:
+                raise AssertionError(f"bad audio for {text[:30]!r}: {audio.dtype} {len(audio)}")
+            dur = len(audio) / eng.sample_rate
+            log("serve " + json.dumps(dict(chars=len(text), chunks=n_seqs, audio_s=round(dur, 3),
+                                           seconds=round(sec, 4), rtf=round(sec / dur, 5))))
+    finally:
+        transformer.flash_attention = flash_attention
     launches = {"flash_attention": flash_attention.launches}
     log(f"serve: launches {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if launches["flash_attention"] <= 0:
         raise AssertionError("the serving run never launched flash_attention")
+    return eng, launches, check_serving_inputs(seen)
 
-    # the short request against the same engine on the CPU (plain versions)
-    ref = SynthesisEngine.from_random(seed=0, device="cpu").synthesize(REQUESTS[0])
-    if len(ref) != len(outputs[0]):
-        raise AssertionError(f"CPU engine length {len(ref)} != CUDA {len(outputs[0])}")
-    d = np.abs(ref.astype(np.int32) - outputs[0].astype(np.int32))
-    log(f"serve: short request vs CPU engine: mean|diff| {d.mean():.4f} LSB, max {d.max()}")
+
+def check_serving_inputs(seen) -> float:
+    """The kernel against its plain version on the serving run's own inputs."""
+    from e2e_tts_tpu_torch.kernels.flash_attention import attention_plain, flash_attention
+
+    worst = 0.0
+    for shape, (q, k, v, kv) in sorted(seen.items()):
+        out = flash_attention(q, k, v, kv)
+        torch.cuda.synchronize()
+        ref = attention_plain(q, k, v, kv)
+        lens = kv.tolist()
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"flash_attention: non-finite output on serving inputs {shape}")
+        err = max([float((out[b, :n] - ref[b, :n]).abs().max()) for b, n in enumerate(lens) if n],
+                  default=0.0)
+        log(f"flash_attention on serving inputs {shape} kv_lens {lens}: max err {err:.3g}")
+        if not err < ATTN_TOL:
+            raise AssertionError(f"flash_attention: max err {err} >= {ATTN_TOL} at {shape}")
+        worst = max(worst, err)
+    return worst
+
+
+def serve_parity(eng) -> None:
+    """The longest request, which runs the kernel, on CUDA and on the CPU
+    (plain versions), both engines starting from the same bucket-estimator
+    state, so that they choose the same buckets."""
+    from e2e_tts_tpu_torch.kernels.flash_attention import flash_attention
+    from e2e_tts_tpu_torch.serve.engine import SynthesisEngine
+
+    text = REQUESTS[-1]
+    cpu = SynthesisEngine.from_random(seed=0, device="cpu")
+    cpu._fpp, cpu._fpp_ema, cpu._fpp_nobs = eng._fpp, eng._fpp_ema, eng._fpp_nobs
+    before = flash_attention.launches
+    out = eng.synthesize(text)
+    if flash_attention.launches <= before:
+        raise AssertionError("the parity request never launched flash_attention")
+    t0 = time.perf_counter()
+    ref = cpu.synthesize(text)
+    if len(ref) != len(out):
+        raise AssertionError(f"CPU engine length {len(ref)} != CUDA {len(out)}")
+    if (cpu._fpp, cpu._fpp_nobs) != (eng._fpp, eng._fpp_nobs):
+        raise AssertionError("the CPU and CUDA engines' bucket estimates parted")
+    d = np.abs(ref.astype(np.int32) - out.astype(np.int32))
+    log(f"serve parity: {len(text)} characters, {flash_attention.launches - before} kernel "
+        f"launches on CUDA, vs CPU engine ({time.perf_counter() - t0:.1f} s): "
+        f"mean|diff| {d.mean():.4f} LSB, max {d.max()}")
     if not d.mean() < 1.0:
         raise AssertionError(f"serve parity: mean|diff| {d.mean()} LSB >= 1")
-    return eng, launches, stats
 
 
 def profile(eng, text: str) -> None:
@@ -287,7 +345,8 @@ def main() -> int:
     build()
     attn = check_attention()
     path_parity()
-    eng, launches, _ = serve()
+    eng, launches, serve_err = serve()
+    serve_parity(eng)
     profile(eng, REQUESTS[-1])
     main_row = attn[2]  # the decoder's largest bucket
     kernels = [dict(
@@ -295,7 +354,7 @@ def main() -> int:
         source="e2e_tts_tpu_torch/kernels/csrc/flash_attention.cu",
         replaces="e2e_tts_tpu/kernels/flash_attention.py:106",
         launches=launches["flash_attention"],
-        max_abs_err=max(r["err"] for r in attn),
+        max_abs_err=max(serve_err, *(r["err"] for r in attn)),
         ms=main_row["kernel_ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
         library_ms=main_row["library_ms"],

@@ -13,8 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
-from typing import Dict, Iterable
+from typing import Dict
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -23,7 +22,6 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -34,45 +32,24 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
-
-
-def build(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
-    """Compile (one ``nvcc`` per source, all started together) whatever is not
-    built yet, load every library and return them by name.  A failed
-    compile prints the compiler's output and raises."""
-    names = list(names)
-    with _LOCK:
-        todo = [n for n in names if n not in _LIBS]
-        procs = []
-        for name in todo:
-            out = _target(name)
-            if os.path.exists(out):
-                continue
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-            procs.append((name, out, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        failed = []
-        for name, out, tmp, proc in procs:
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                print(log, end="", flush=True)
-                failed.append(name)
-            else:
-                os.replace(tmp, out)
-        if failed:
-            raise RuntimeError(f"nvcc failed for {failed}")
-        for name in todo:
-            _LIBS[name] = ctypes.CDLL(_target(name))
-        return {n: _LIBS[n] for n in names}
-
-
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
-    lib = _LIBS.get(name)
-    return lib if lib is not None else build([name])[name]
+    """The loaded library for ``csrc/<name>.cu``, compiled first if its
+    hashed ``.so`` is missing.  A failed compile prints the compiler's
+    output and raises."""
+    if name in _LIBS:
+        return _LIBS[name]
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    out = os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
+    if not os.path.exists(out):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            print(proc.stdout, end="", flush=True)
+            raise RuntimeError(f"nvcc failed for {src}")
+        os.replace(tmp, out)
+    _LIBS[name] = ctypes.CDLL(out)
+    return _LIBS[name]

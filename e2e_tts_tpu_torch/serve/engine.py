@@ -108,7 +108,6 @@ class SynthesisEngine:
         batch_size: int = DEFAULT_BATCH,
         foreign_dict: Optional[dict] = None,
         language: str = "vie",
-        transfer_codec: Optional[str] = None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -133,12 +132,6 @@ class SynthesisEngine:
         fe = get_frontend(language)
         self._to_sequence = lambda c: fe.to_sequence(c, self.foreign_dict)
 
-        # int16 on the wire by default on every device; "mulaw8" ships uint8
-        # mu-law (G.711-style companding, ~38 dB SNR)
-        if transfer_codec not in (None, "int16", "mulaw8"):
-            raise ValueError(f"unknown transfer_codec {transfer_codec!r}")
-        self.transfer_codec = None if transfer_codec == "int16" else transfer_codec
-
         # frames-per-phoneme estimate for the stage-2 mel bucket: _fpp is the
         # value in use; _fpp_ema tracks observations and replaces _fpp only
         # after drifting a full hysteresis band, so the bucket does not walk
@@ -161,30 +154,6 @@ class SynthesisEngine:
                 self._fpp = self._fpp_ema
         self._fpp_nobs += 1
 
-    # --- transfer codec -----------------------------------------------------
-
-    _MU = 255.0
-
-    def _encode_transfer(self, audio: torch.Tensor) -> torch.Tensor:
-        """On the device: float waveform -> wire dtype (int16 or mu-law uint8)."""
-        x = torch.clamp(audio.float(), -1.0, 1.0)
-        if self.transfer_codec == "mulaw8":
-            y = torch.sign(x) * torch.log1p(self._MU * torch.abs(x)) / np.log1p(self._MU)
-            return torch.round((y + 1.0) * 127.5).to(torch.uint8)
-        return torch.clamp(x * 32767.0, -32768, 32767).to(torch.int16)
-
-    @classmethod
-    def _mulaw_lut(cls) -> np.ndarray:
-        y = np.arange(256, dtype=np.float32) / 127.5 - 1.0
-        x = np.sign(y) * (np.power(1.0 + cls._MU, np.abs(y)) - 1.0) / cls._MU
-        return np.clip(x * 32767.0, -32768, 32767).astype(np.int16)
-
-    def _decode_transfer(self, arr: np.ndarray) -> np.ndarray:
-        """On the host: wire dtype -> int16 waveform."""
-        if self.transfer_codec == "mulaw8":
-            return self._mulaw_lut()[arr]
-        return arr
-
     # --- stages ---------------------------------------------------------------
 
     def _row_bucket(self, n_rows: int) -> int:
@@ -195,10 +164,11 @@ class SynthesisEngine:
 
     @torch.no_grad()
     def _stage2(self, x, durations, T: int, p: float, e: float):
-        """Stage 2 + vocoder + wire encoding at mel bucket T, on the device."""
+        """Stage 2 + vocoder at mel bucket T, on the device: int16 waveforms."""
         mel, mel_lens = self.acoustic.synthesize_stage2(
             x, durations, max_mel_len=T, p_control=p, e_control=e)
-        return self._encode_transfer(self.vocoder(mel)), mel_lens
+        audio = torch.clamp(self.vocoder(mel).float(), -1.0, 1.0)
+        return (audio * 32767.0).to(torch.int16), mel_lens
 
     # --- public API -----------------------------------------------------------
 
@@ -332,10 +302,10 @@ class SynthesisEngine:
             total_row = int(total[row])
             if total_row <= T_est:
                 n = int(mel_lens[row]) * self.hop_length
-                results[i] = self._decode_transfer(codes[row, :n])
+                results[i] = codes[row, :n]
             elif total_row <= MAX_MEL_LEN:
                 n = int(re_lens[row]) * self.hop_length
-                results[i] = self._decode_transfer(re_codes[row][:n])
+                results[i] = re_codes[row][:n]
             else:
                 # more frames than any bucket holds: re-split at phoneme
                 # boundaries, or, for one unsplittable phoneme, render the

@@ -136,11 +136,23 @@ def test_split_long_sequence_matches_jax():
         assert np.concatenate(got).tolist() == seq.tolist()
 
 
-def test_mulaw_codec_matches_jax():
-    np.testing.assert_array_equal(SynthesisEngine._mulaw_lut(), JaxEngine._mulaw_lut())
-    _, peng = _engines()
-    x = torch.linspace(-1.2, 1.2, 1001)
-    assert peng._encode_transfer(x).dtype == torch.int16  # int16 by default
+def test_int16_waveform_matches_jax_encoding():
+    """Stage 2 hands the host int16 samples, encoded as the JAX engine's
+    int16 transfer codec encodes them (clip to [-1, 1], scale, truncate)."""
+    jeng, peng = _engines()
+    x = np.linspace(-1.2, 1.2, 1001, dtype=np.float32)
+    seqs, _ = peng.prepare_request(GOLDEN[0])
+    x1, d1 = peng.acoustic.synthesize_stage1(
+        torch.zeros(1, dtype=torch.int64), torch.from_numpy(seqs[0][None].astype(np.int64)),
+        torch.tensor([len(seqs[0])]))
+    vocoder = peng.vocoder
+    try:  # a vocoder whose waveform is x, past both clip edges
+        peng.vocoder = lambda mel: torch.from_numpy(x)[None].expand(mel.shape[0], -1)
+        codes, _ = peng._stage2(x1, d1, 128, 1.0, 1.0)
+    finally:
+        peng.vocoder = vocoder
+    assert codes.dtype == torch.int16
+    np.testing.assert_array_equal(codes.numpy()[0], np.asarray(jeng._encode_transfer(x)))
 
 
 def test_device_none_without_cuda_raises():

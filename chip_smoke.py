@@ -5,10 +5,13 @@
 Phases, in order; any failure raises and the exit code is non-zero:
 
 1. environment: the card's name and power limit, torch/CUDA versions, TF32 off;
-2. build: every CUDA kernel of the port, compiled from the sources here;
+2. build: every CUDA kernel of the port, compiled from the sources here, with
+   the compiler's register and spill counts;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    main path's shapes, with its time, the plain version's, a library call's
-   (yardstick only) and the least time the card could take (``bound_ms``);
+   (yardstick only) and the least time the card could take at the bar's
+   precision (``bound_ms``: the lesser of the float32-FMA and the 3xTF32
+   tensor-core bound);
 4. path parity: the default-width FastSpeech2 stages on CUDA (kernels)
    against the same weights on the CPU (plain versions);
 5. serve: ``SynthesisEngine.from_random(seed=0)`` at default width answers a
@@ -19,7 +22,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    against the same engine on the CPU (plain versions), both started from the
    same bucket-estimator state;
 7. profile: one long request under ``torch.profiler`` (device busy share,
-   the kernels that take most device time);
+   the kernels that take most device time, the port's own kernels' time);
 8. a JSON line of every kernel, then the JSON result as the last line.
 
 It imports nothing of JAX.  Without CUDA it exits non-zero and prints no result.
@@ -37,9 +40,11 @@ import time
 import numpy as np
 import torch
 
-# Published peaks of one H100 SXM (dense): float32 outside the tensor cores and
-# HBM3 bandwidth.  They assume the full 700 W power limit.
+# Published peaks of one H100 SXM (dense): float32 outside the tensor cores,
+# TF32 on the tensor cores, and HBM3 bandwidth.  They assume the full 700 W
+# power limit.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 ATTN_TOL = 2e-5    # max |kernel - plain| on valid rows (the JAX kernel test's bar)
@@ -88,12 +93,16 @@ KERNELS = ("flash_attention",)
 
 
 def build() -> None:
-    from e2e_tts_tpu_torch.kernels.build import library
+    from e2e_tts_tpu_torch.kernels.build import compiler_log, library
 
     t0 = time.perf_counter()
     for name in KERNELS:
         library(name)
     log(f"build: {len(KERNELS)} kernel(s) in {time.perf_counter() - t0:.1f} s")
+    for name in KERNELS:  # ptxas: registers and spills of each instantiation
+        for line in compiler_log(name).splitlines():
+            if "Compiling entry" in line or "spill" in line or "Used" in line:
+                log(f"  {name}: {line.strip()}")
 
 
 # --- 3. kernels against their plain versions -------------------------------------------
@@ -104,20 +113,29 @@ ATTN_SHAPES = (  # (BH, T, D, kv_lens); the first three are the decoder's at def
     (16, 2048, 192, (2048, 2047, 1800, 1537, 1025, 1, 0, 2048, 1900, 1333, 640, 257, 2048, 999, 128, 3)),
     (4, 100, 64, (100, 37, 1, 0)),
     (2, 300, 24, (300, 0)),
+    # the serving run's three shapes, with the kv_lens it gave the kernel
+    (4, 384, 192, (88, 88, 4, 4)),
+    (4, 640, 192, (222, 222, 4, 4)),
+    (4, 1152, 192, (957, 957, 4, 4)),
 )
 
 
-def attention_bound(D, lens):
-    """Least time (ms) for the work these inputs need.  Only the valid rows
-    (t < kv_len) mean anything, so: each valid query row against its kv_len
-    keys, 2 flops per multiply-add in q k^T and in p v (4 D kv_len^2 per
-    head); the valid rows of q, k, v read once and of the output written
-    once, and kv_lens read."""
+def attention_bounds(D, lens):
+    """Least time (ms) for the work these inputs need, at the bar's precision.
+    Only the valid rows (t < kv_len) mean anything, so: each valid query row
+    against its kv_len keys, 2 flops per multiply-add in q k^T and in p v
+    (4 D kv_len^2 per head); the valid rows of q, k, v read once and of the
+    output written once, and kv_lens read.  Two ways to hold the float32 bar:
+    float32 FMAs, or three TF32 tensor-core products per product (3xTF32).
+    Returns both bounds and the lesser one with what bounds it."""
     n = np.asarray(lens, np.float64)
     flops = 4.0 * D * float((n * n).sum())
-    nbytes = 4.0 * (4 * D * float(n.sum()) + len(n))
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    t_bytes = 4.0 * (4 * D * float(n.sum()) + len(n)) / PEAK_BYTES
+    fp32 = max(flops / PEAK_FP32_FLOPS, t_bytes)
+    tc = max(3 * flops / PEAK_TF32_FLOPS, t_bytes)
+    best = min(fp32, tc)
+    return dict(bound_fp32_ms=1e3 * fp32, bound_tc_ms=1e3 * tc, bound_ms=1e3 * best,
+                bound_by="bytes" if best == t_bytes else "operations")
 
 
 def check_attention():
@@ -146,7 +164,7 @@ def check_attention():
             plain_ms=time_ms(lambda: attention_plain(q, k, v, kv)),
             library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=mask)),
         )
-        row["bound_ms"], row["bound_by"] = attention_bound(D, lens)
+        row.update(attention_bounds(D, lens))
         rows.append(row)
         log("flash_attention " + json.dumps(row))
     return rows
@@ -334,9 +352,11 @@ def profile(eng, text: str) -> None:
         log("profile: the profiler shows no device time: device busy share not measured")
         return
     top = sorted(kernels, key=dev_ms, reverse=True)[:10]
+    ours = [e for e in kernels if "flash_" in e.key]  # the port's kernels, by name
     log("profile " + json.dumps(dict(
         chars=len(text), wall_ms=round(wall_ms, 3), device_busy_ms=round(busy_ms, 3),
         busy_share=round(busy_ms / wall_ms, 4), kernel_launches=sum(e.count for e in kernels),
+        port_kernels=[dict(name=e.key[:60], ms=round(dev_ms(e), 3), n=e.count) for e in ours],
         top=[dict(name=e.key[:90], ms=round(dev_ms(e), 3), n=e.count) for e in top])))
 
 

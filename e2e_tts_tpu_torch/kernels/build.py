@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``_build/<name>-<hash>.so`` (``.gitignore`` lists ``_build/``), keyed by a hash
-of the source and the flags, and is loaded with ``ctypes``.  Nothing here runs
-at import: the CPU tests import every module on a machine without ``nvcc``.
+of the source and the flags, and is loaded with ``ctypes``; what the compiler
+printed (``ptxas -v``: registers, spills) is kept beside it as ``.log``.
+Nothing here runs at import: the CPU tests import every module on a machine
+without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v",
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -32,6 +34,18 @@ def _nvcc() -> str:
     return path
 
 
+def _output(name: str) -> str:
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
+
+
+def compiler_log(name: str) -> str:
+    """What nvcc printed when it built ``csrc/<name>.cu`` (after ``library``)."""
+    with open(_output(name) + ".log") as f:
+        return f.read()
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, compiled first if its
     hashed ``.so`` is missing.  A failed compile prints the compiler's
@@ -39,9 +53,7 @@ def library(name: str) -> ctypes.CDLL:
     if name in _LIBS:
         return _LIBS[name]
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
+    out = _output(name)
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
@@ -50,6 +62,8 @@ def library(name: str) -> ctypes.CDLL:
         if proc.returncode != 0:
             print(proc.stdout, end="", flush=True)
             raise RuntimeError(f"nvcc failed for {src}")
+        with open(f"{out}.log", "w") as f:
+            f.write(proc.stdout)
         os.replace(tmp, out)
     _LIBS[name] = ctypes.CDLL(out)
     return _LIBS[name]

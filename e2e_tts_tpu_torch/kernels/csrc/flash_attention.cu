@@ -1,246 +1,606 @@
-// Length-masked flash attention, forward only, float32, for Hopper (sm_90a).
+// Length-masked flash attention, forward only, float32 in and out, for Hopper
+// (sm_90a), with both products on the tensor cores in 3xTF32.
 //
 // Replaces the Pallas kernel of e2e_tts_tpu/kernels/flash_attention.py
 // (_flash_fwd_kernel, launched by _fwd_impl): out = softmax(q k^T / sqrt(D)) v
 // over (BH, T, D), where the keys at or past kv_lens[bh] score -1e30, with an
 // online softmax (float32 running max, sum and accumulator) over key tiles.
 //
-// What bounds it on the H100: at the decoder's shapes (BH = 16, T up to 2048,
-// D = 192) one call does 4*BH*T^2*D flops on 4*BH*T*D*4 bytes of q/k/v/out,
-// about 2,000 flops a byte, so it is bound by operations, not memory.  The
-// float32 path has no tensor cores (TF32 would break the 2e-5 bar), so the
-// ceiling is the non-tensor FP32 FMA rate.
+// What bounds it on the H100: 4*D*kv_len^2 flops a head against 16*D*kv_len
+// bytes of valid q/k/v/out rows, hundreds of flops a byte, so operations.  The
+// output must match float32 attention within 2e-5, which one TF32 product
+// (10-bit mantissa) misses by 100x; so each operand x is split in registers
+// into big = tf32(x) and small = tf32(x - big), and every m16n8k8 fragment
+// product is issued three times (big*big + big*small + small*big, f32
+// accumulate, small*small dropped).  The ceiling is then a third of the TF32
+// tensor rate, against 67 TFLOP/s of float32 FMA.  An mma.sync result comes
+// back several issue slots after the product starts, so a warp alone on an SM
+// sub-partition leaves the tensor core idle between dependent products: the
+// kernel needs 8 warps an SM and independent products in flight.  At
+// serving shapes (BH = 4, T up to 1152, most rows padding) there are few
+// query rows, and one warp's serial loop over the key tiles sets the time.
 //
-// What the design does about it: each thread block owns one (bh, 64-row query
-// tile) and loops over 32-row key/value tiles itself (the TPU grid's
-// sequential axis becomes this loop).  The query tile is read from device
-// memory once and kept in shared memory; key and value tiles are staged
-// through shared memory.  Both products are register-tiled: a thread computes
-// a 4 x 2 block of scores and a 4 x (4*NC4) block of the output, reading
-// shared memory with 16-byte loads whose row strides keep the banks apart, so
-// the loop issues several FMAs per shared load.  Tiles that lie wholly past
-// kv_len are skipped; they contribute exactly zero to the online softmax.
-// A row with kv_len = 0 sees no tile and comes out 0 (finite), never NaN.
+// What the design does about it:
+// - mma.sync (not wgmma): each operand tile sits in shared memory once, in
+//   f32, and is split at fragment load.  wgmma reads a tf32 B operand only
+//   K-major from shared memory (P v would need transposed V tiles) and would
+//   need split copies of every operand, more than 227 KB at D = 192.
+// - FA2-style warps: a warp owns 16 query rows; its score tile and its
+//   16 x D output accumulator live in registers; row max and sum reduce over
+//   the 4 lanes that share a row; exp2f of (s - max) times log2(e)/sqrt(D),
+//   so the scale touches only the difference.
+// - The tensor core truncates its f32 sums.  A running accumulator fed
+//   product after product drifts toward zero, past the 2e-5 bar on serving
+//   activations at T = 1152, so each 8-wide slice of q k^T and each tile's
+//   p v goes into a fresh accumulator that is added in f32.
+// - Products are issued over 4 independent accumulators at a time.
+// - The score accumulator (m16n8: lane holds keys 2c, 2c+1) feeds P v as the
+//   A fragment (m16n8k8: lane holds k = c, c+4) without a shuffle: within
+//   each 8-key slice, k position c stands for key 2c and c+4 for key 2c+1, and
+//   the V fragment reads its rows in the same order.
+// - K/V tiles of 32 rows arrive in a two-stage ring by cp.async (16 bytes a
+//   thread where D % 4 == 0, 4 bytes otherwise), so tile j+1 loads while tile
+//   j is multiplied.  Row stride dp + 4 floats (dp = D rounded up to 8) keeps
+//   the q, k and v fragment loads free of bank conflicts.  Rows at or past
+//   kv_len arrive as zeros; only the keys past kv_len in the last tile are
+//   masked.
+// - No work past kv_len: the key loop ends at ceil(kv_len / 32); a block, or a
+//   query group, whose first row is at or past kv_len writes zeros to its rows
+//   and runs no key loop.  A head with kv_len = 0 comes out 0.
+// - A block has up to 8 warps.  The launch gives it the most 16-row query
+//   groups (8, 4, 2, 1) that still leave BH * ceil(T / rows) blocks for every
+//   SM and fit in shared memory.  The warps left over split each group's
+//   32-key tiles (2 or 4 warps a group, 16 or 8 keys each), each with its own
+//   online softmax, merged through shared memory after the loop.  So serving's
+//   few query rows still get 4 warps a group and 8 warps a block.
+// - Where the blocks are still few against what the card holds at once, each
+//   head's key tiles are cut into up to 8 parts (grid z), each part a block
+//   that writes its unnormalised softmax state (o, max, sum) to a workspace
+//   the caller allocates; a second small kernel, flash_merge, combines the
+//   parts of each valid row.  The launch plan (groups, warps, parts) is made
+//   once per (device, BH, T, D), from T and not from kv_len, which stays on
+//   the device.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// Interface: plain C, loaded with ctypes; the launch returns cudaGetLastError().
+// Interface: plain C, loaded with ctypes: flash_attention_workspace_floats
+// says how much workspace a call needs, flash_attention_fwd_f32 launches and
+// returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BKV = 32;       // key/value rows per tile
-constexpr int THREADS = 256;  // 16 x 16 threads
-constexpr int PLD = BKV + 4;  // row stride of the probability tile (floats)
+constexpr int BKV = 32;             // key/value rows per tile
+constexpr int STAGES = 2;           // K/V tiles in the ring
+constexpr int MAX_WARPS = 8;        // warps a block
+constexpr int MIN_SPLIT_TILES = 4;  // key tiles a part takes at least
+constexpr int MAX_SPLIT = 8;        // parts of a head's key tiles, at most
+// blocks a key split aims at, per block the card holds at once: more than
+// one wave's worth, because serving pads most rows and their blocks return
+// at once (tuned on an H100 at the serving and decoder shapes)
+constexpr double SPLIT_LOAD = 2.5;
 constexpr float MASKED = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-// Row stride (floats) for q/k/v tiles of width dp (a multiple of 4): a
-// multiple of 4 for 16-byte loads, with an odd count of 16-byte units so
-// that lanes reading consecutive rows fall in different banks.
-__host__ __device__ inline int row_stride(int dp) {
-    return ((dp / 4) % 2 == 0) ? dp + 4 : dp + 8;
+// cvt.rna.tf32.f32 (round to nearest, ties away from zero, to a 10-bit
+// mantissa) of a finite x, in two integer instructions: ptxas expands the cvt
+// itself into a longer sequence on sm_90, and the split is on the hot path
+__device__ __forceinline__ uint32_t tf32(float x) {
+    return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-inline size_t smem_bytes(int dp) {
-    const int ld = row_stride(dp);
-    return sizeof(float) * (size_t)(BQ * ld + 2 * BKV * ld + BQ * PLD);
+// x = big + small to about 2^-22 relative, both exact in TF32
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+    big = tf32(x);
+    small = tf32(x - __uint_as_float(big));
 }
 
-// Copy rows [row0, row0 + nrows) of a (T, D) matrix into a (nrows, ld) tile,
-// zero-filling rows past T and columns D..dp-1, multiplied by `scale`.
-__device__ inline void load_tile(float* __restrict__ dst, const float* __restrict__ src,
-                                 int row0, int nrows, int T, int D, int dp, int ld,
-                                 float scale) {
-    for (int idx = threadIdx.x; idx < nrows * dp; idx += THREADS) {
-        const int r = idx / dp;
-        const int c = idx - r * dp;
-        const int t = row0 + r;
-        float x = 0.f;
-        if (t < T && c < D) x = src[(size_t)t * D + c] * scale;
-        dst[r * ld + c] = x;
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[n] += a b[n] for N fragments of B in 3xTF32: the two cross terms, then
+// big*big, each pass over all N so that consecutive products are independent
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[N][4], const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], const uint32_t (&bb)[N][2],
+                                           const uint32_t (&bs)[N][2]) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma_tf32(c[n], ab, bs[n][0], bs[n][1]);
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma_tf32(c[n], as, bb[n][0], bb[n][1]);
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma_tf32(c[n], ab, bb[n][0], bb[n][1]);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int nbytes) {
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src), "r"(nbytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int nbytes) {
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s), "l"(src), "r"(nbytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Start copying rows [row0, row0 + nrows) of a (T, D) matrix into an
+// (nrows, ld) tile; rows at or past `lim` and columns D..dp-1 are zero-filled.
+// Warps take rows, lanes take 16-byte (or 4-byte) columns.
+__device__ __forceinline__ void load_rows(float* __restrict__ dst, const float* __restrict__ src,
+                                          int row0, int nrows, int lim, int D, int dp, int ld,
+                                          bool vec) {
+    const int nwarps = blockDim.x >> 5, lane = threadIdx.x & 31;
+    for (int r = threadIdx.x >> 5; r < nrows; r += nwarps) {
+        const bool row_ok = row0 + r < lim;
+        const float* s = src + (size_t)(row_ok ? row0 + r : 0) * D;
+        float* d = dst + r * ld;
+        if (vec) {  // D % 4 == 0 and 16-byte aligned rows
+            for (int c = lane * 4; c < dp; c += 128) {
+                const bool ok = row_ok && c < D;
+                cp_async16(d + c, ok ? s + c : src, ok ? 16 : 0);
+            }
+        } else {
+            for (int c = lane; c < dp; c += 32) {
+                const bool ok = row_ok && c < D;
+                cp_async4(d + c, ok ? s + c : src, ok ? 4 : 0);
+            }
+        }
     }
 }
 
-// NC4: 16-byte column groups of the output each thread holds, per 64
-// columns of dp (dp <= 64 * NC4).
-template <int NC4>
-__global__ void __launch_bounds__(THREADS, 2)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const int* __restrict__ kv_lens,
-              float* __restrict__ out, int T, int D, int dp, float scale) {
+// DT: 8-column tiles of the output (dp <= 8 * DT); NT: 8-key slices of each
+// 32-key tile a warp takes (4 / NT warps share a query group's tile)
+template <int DT, int NT>
+__global__ void __launch_bounds__(32 * MAX_WARPS)
+flash_fwd_3xtf32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ kv_lens,
+                 float* __restrict__ out, float* __restrict__ part, int T, int D, int dp,
+                 float scale_log2, int vec) {  // keep in step with Kernel
+    constexpr int KS = 4 / NT;  // warps of a query group
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
-    const int ld = row_stride(dp);
-    float* qs = smem;               // (BQ, ld), pre-scaled
-    float* ks = qs + BQ * ld;       // (BKV, ld)
-    float* vs = ks + BKV * ld;      // (BKV, ld)
-    float* ps = vs + BKV * ld;      // (BQ, PLD)
+    const int ld = dp + 4;
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;  // fragment row group
+    const int tg = lane & 3;  // thread in group
+    const int wq = warp / KS;           // this warp's 16-row query group
+    const int wk = warp - wq * KS;      // and its keys of each tile: wk*NT*8 ..
+    const int bq = 16 * (blockDim.x >> 5) / KS;
+    float* qs = smem;                   // (bq, ld)
+    float* kvs = qs + bq * ld;          // STAGES x [K (BKV, ld), V (BKV, ld)]
 
     const int bh = blockIdx.y;
-    const int q0 = blockIdx.x * BQ;
-    const int tx = threadIdx.x & 15;
-    const int ty = threadIdx.x >> 4;
+    const int q0 = blockIdx.x * bq;
+    const int r0 = q0 + wq * 16;  // this warp's first query row
     const size_t base = (size_t)bh * T * D;
     int kv_len = kv_lens[bh];
     kv_len = kv_len < 0 ? 0 : (kv_len > T ? T : kv_len);
 
-    load_tile(qs, q + base, q0, BQ, T, D, dp, ld, scale);
-
-    // this thread's rows: ty*4 + i; score columns: tx + 16*j;
-    // output columns: (c*16 + tx)*4 + e
-    float acc[4][NC4 * 4];
-    float m[4], l[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        m[i] = MASKED;
-        l[i] = 0.f;
-#pragma unroll
-        for (int c = 0; c < NC4 * 4; ++c) acc[i][c] = 0.f;
+    // this block's key tiles [jb, je): part z of the head's tiles, cut in
+    // gridDim.z parts; with more than one part, flash_merge writes every row
+    const int nsplit = gridDim.z;
+    const int n_tiles = (kv_len + BKV - 1) / BKV;
+    const int per = (n_tiles + nsplit - 1) / nsplit;
+    const int jb = blockIdx.z * per;
+    const int je = jb + per < n_tiles ? jb + per : n_tiles;
+    if (q0 >= kv_len || jb >= je) {  // no valid query row or no key: no key loop
+        const int n = (T - q0 < bq ? T - q0 : bq) * D;
+        for (int i = threadIdx.x; nsplit == 1 && i < n; i += blockDim.x)
+            out[base + (size_t)q0 * D + i] = 0.f;
+        return;
     }
 
-    const int n_tiles = (kv_len + BKV - 1) / BKV;
-    for (int tile = 0; tile < n_tiles; ++tile) {
-        const int kv0 = tile * BKV;
-        __syncthreads();  // previous tile's ks/vs/ps are no longer read
-        load_tile(ks, k + base, kv0, BKV, T, D, dp, ld, 1.f);
-        load_tile(vs, v + base, kv0, BKV, T, D, dp, ld, 1.f);
+    // the ring: q and tile jb in flight before the loop, then one commit group
+    // a tile, loaded one tile ahead of the one being multiplied
+    load_rows(qs, q + base, q0, bq, T, D, dp, ld, vec);
+    load_rows(kvs, k + base, jb * BKV, BKV, kv_len, D, dp, ld, vec);
+    load_rows(kvs + BKV * ld, v + base, jb * BKV, BKV, kv_len, D, dp, ld, vec);
+    cp_async_commit();
+
+    const bool active = r0 < kv_len;  // a group past kv_len only helps load
+    const float* qw = qs + wq * 16 * ld;
+    float o[DT][4];
+#pragma unroll
+    for (int t = 0; t < DT; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
+    float m0 = MASKED, m1 = MASKED;  // running max of raw scores, rows g and g + 8
+    float l0 = 0.f, l1 = 0.f;        // this lane's share of the running sums
+
+    for (int j = jb; j < je; ++j) {
+        if (j + 1 < je) {
+            float* nxt = kvs + ((j + 1 - jb) % STAGES) * 2 * BKV * ld;
+            load_rows(nxt, k + base, (j + 1) * BKV, BKV, kv_len, D, dp, ld, vec);
+            load_rows(nxt + BKV * ld, v + base, (j + 1) * BKV, BKV, kv_len, D, dp, ld, vec);
+        }
+        cp_async_commit();  // possibly empty: one group per iteration
+        cp_async_wait<1>(); // tile j (and q) have landed
         __syncthreads();
 
-        // s = (q * scale) k^T on a 4 x 2 register block
-        float s[4][2];
+        const int kv0 = j * BKV + wk * NT * 8;  // this warp's first key
+        if (active && kv0 < kv_len) {
+            const float* ks = kvs + ((j - jb) % STAGES) * 2 * BKV * ld + wk * NT * 8 * ld;
+            const float* vs = ks + BKV * ld;
+
+            // s = q k^T (raw), 16 x 8*NT as NT m16n8 tiles.  Each 8-wide slice
+            // of D goes into a fresh accumulator that is added to s in f32: the
+            // tensor core truncates its sums, and a running accumulator would
+            // drift toward zero over the slices.
+            float s[NT][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
-        for (int d = 0; d < dp; d += 4) {
-            float4 qv[4], kv[2];
+            for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll 2
+            for (int kk = 0; kk < dp; kk += 8) {
+                uint32_t ab[4], as[4], bb[NT][2], bs[NT][2];
+                split(qw[g * ld + kk + tg], ab[0], as[0]);
+                split(qw[(g + 8) * ld + kk + tg], ab[1], as[1]);
+                split(qw[g * ld + kk + tg + 4], ab[2], as[2]);
+                split(qw[(g + 8) * ld + kk + tg + 4], ab[3], as[3]);
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-                qv[i] = *reinterpret_cast<const float4*>(&qs[(ty * 4 + i) * ld + d]);
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-                kv[j] = *reinterpret_cast<const float4*>(&ks[(tx + 16 * j) * ld + d]);
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 2; ++j) {
-                    s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-                    s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-                    s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-                    s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+                for (int n = 0; n < NT; ++n) {
+                    const float* kr = ks + (n * 8 + g) * ld + kk + tg;
+                    split(kr[0], bb[n][0], bs[n][0]);
+                    split(kr[4], bb[n][1], bs[n][1]);
                 }
-        }
+                float t[NT][4] = {};
+                mma_3xtf32<NT>(t, ab, as, bb, bs);
+#pragma unroll
+                for (int n = 0; n < NT; ++n)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) s[n][e] += t[n][e];
+            }
 
-        // mask, then the online-softmax update; the 16 threads sharing a row
-        // (same ty, lanes tx = 0..15 of one half-warp) reduce by xor shuffles,
-        // which leave every lane with the same value
+            // mask the keys past kv_len, then the online softmax; lane holds
+            // rows g (s[n][0..1]) and g + 8 (s[n][2..3]) at keys
+            // kv0 + n*8 + 2*tg + {0, 1}
+            if (kv0 + NT * 8 > kv_len) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+                for (int n = 0; n < NT; ++n)
 #pragma unroll
-            for (int j = 0; j < 2; ++j)
-                if (kv0 + tx + 16 * j >= kv_len) s[i][j] = MASKED;
-            float mx = fmaxf(s[i][0], s[i][1]);
+                    for (int e = 0; e < 2; ++e)
+                        if (kv0 + n * 8 + 2 * tg + e >= kv_len) s[n][e] = s[n][2 + e] = MASKED;
+            }
+            float mx0 = m0, mx1 = m1;
 #pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-            const float m_new = fmaxf(m[i], mx);
-            const float p0 = expf(s[i][0] - m_new);
-            const float p1 = expf(s[i][1] - m_new);
-            float sum = p0 + p1;
+            for (int n = 0; n < NT; ++n) {
+                mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+                mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+            }
 #pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                sum += __shfl_xor_sync(0xffffffffu, sum, off);
-            const float alpha = expf(m[i] - m_new);
-            l[i] = l[i] * alpha + sum;
-            m[i] = m_new;
-#pragma unroll
-            for (int c = 0; c < NC4 * 4; ++c) acc[i][c] *= alpha;
-            ps[(ty * 4 + i) * PLD + tx] = p0;
-            ps[(ty * 4 + i) * PLD + tx + 16] = p1;
-        }
-        __syncthreads();
+            for (int off = 1; off < 4; off <<= 1) {
+                mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+                mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+            }
+            const float alpha0 = exp2f((m0 - mx0) * scale_log2);
+            const float alpha1 = exp2f((m1 - mx1) * scale_log2);
+            m0 = mx0;
+            m1 = mx1;
 
-        // acc += p v on a 4 x (4*NC4) register block
-        for (int kk = 0; kk < BKV; kk += 4) {
-            float4 pv[4];
+            // p = exp2((s - max) * log2(e) / sqrt(D)), split as the A fragments
+            // of p v: in 8-key slice n, k position tg is key 2*tg and tg + 4 is
+            // key 2*tg + 1, so the score accumulator needs no shuffle
+            uint32_t pb[NT][4], ps[NT][4];
+            float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-                pv[i] = *reinterpret_cast<const float4*>(&ps[(ty * 4 + i) * PLD + kk]);
+            for (int n = 0; n < NT; ++n) {
+                const float p0 = exp2f((s[n][0] - mx0) * scale_log2);
+                const float p1 = exp2f((s[n][1] - mx0) * scale_log2);
+                const float p2 = exp2f((s[n][2] - mx1) * scale_log2);
+                const float p3 = exp2f((s[n][3] - mx1) * scale_log2);
+                sum0 += p0 + p1;
+                sum1 += p2 + p3;
+                split(p0, pb[n][0], ps[n][0]);
+                split(p2, pb[n][1], ps[n][1]);
+                split(p1, pb[n][2], ps[n][2]);
+                split(p3, pb[n][3], ps[n][3]);
+            }
+            l0 = l0 * alpha0 + sum0;
+            l1 = l1 * alpha1 + sum1;
+
+            // o = o * alpha + p v, four 8-column tiles at a time; this tile's
+            // p v goes into a fresh accumulator, as s did
+            const float* vr = vs + 2 * tg * ld + g;
 #pragma unroll
-            for (int u = 0; u < 4; ++u) {
-                const float* vrow = &vs[(kk + u) * ld];
+            for (int t0 = 0; t0 < DT; t0 += 4) {
+                if (t0 * 8 < dp) {
+                    float acc[4][4] = {};
 #pragma unroll
-                for (int c = 0; c < NC4; ++c) {
-                    const int col = (c * 16 + tx) * 4;
-                    if (col < dp) {
-                        const float4 vv = *reinterpret_cast<const float4*>(&vrow[col]);
+                    for (int n = 0; n < NT; ++n) {
+                        uint32_t vb[4][2], vsm[4][2];
 #pragma unroll
-                        for (int i = 0; i < 4; ++i) {
-                            const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y
-                                          : u == 2 ? pv[i].z : pv[i].w;
-                            acc[i][c * 4 + 0] = fmaf(p, vv.x, acc[i][c * 4 + 0]);
-                            acc[i][c * 4 + 1] = fmaf(p, vv.y, acc[i][c * 4 + 1]);
-                            acc[i][c * 4 + 2] = fmaf(p, vv.z, acc[i][c * 4 + 2]);
-                            acc[i][c * 4 + 3] = fmaf(p, vv.w, acc[i][c * 4 + 3]);
+                        for (int u = 0; u < 4; ++u) {
+                            const float* x = vr + n * 8 * ld + (t0 + u) * 8;
+                            const bool in = (t0 + u) * 8 < dp;  // columns past dp: zeros
+                            split(in ? x[0] : 0.f, vb[u][0], vsm[u][0]);
+                            split(in ? x[ld] : 0.f, vb[u][1], vsm[u][1]);
                         }
+                        mma_3xtf32<4>(acc, pb[n], ps[n], vb, vsm);
+                    }
+#pragma unroll
+                    for (int u = 0; u < 4; ++u) {
+                        o[t0 + u][0] = fmaf(o[t0 + u][0], alpha0, acc[u][0]);
+                        o[t0 + u][1] = fmaf(o[t0 + u][1], alpha0, acc[u][1]);
+                        o[t0 + u][2] = fmaf(o[t0 + u][2], alpha1, acc[u][2]);
+                        o[t0 + u][3] = fmaf(o[t0 + u][3], alpha1, acc[u][3]);
                     }
                 }
             }
         }
+        __syncthreads();  // this stage is free for tile j + 2
     }
 
+    if (KS > 1) {
+        // the warps of a query group hold softmax states over disjoint keys:
+        // parts 1.. go through shared memory (the ring is free now) to part 0,
+        // which merges them, each lane its own fragment positions
+        cp_async_wait<0>();
+        float* part = kvs + (size_t)warp * (4 * DT + 4) * 32 + lane;
+        if (active && wk > 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int t = q0 + ty * 4 + i;
-        if (t >= T) continue;
-        const float inv = 1.f / fmaxf(l[i], 1e-20f);
-        float* orow = out + base + (size_t)t * D;
+            for (int t = 0; t < DT; ++t)
 #pragma unroll
-        for (int c = 0; c < NC4; ++c)
+                for (int e = 0; e < 4; ++e) part[(4 * t + e) * 32] = o[t][e];
+            part[(4 * DT) * 32] = m0;
+            part[(4 * DT + 1) * 32] = m1;
+            part[(4 * DT + 2) * 32] = l0;
+            part[(4 * DT + 3) * 32] = l1;
+        }
+        __syncthreads();
+        if (wk > 0) return;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int col = (c * 16 + tx) * 4 + e;
-                if (col < D) orow[col] = acc[i][c * 4 + e] * inv;
+        for (int w = 1; w < KS; ++w) {
+            if (!active) break;
+            const float* pw = part + (size_t)w * (4 * DT + 4) * 32;
+            const float pm0 = pw[(4 * DT) * 32], pm1 = pw[(4 * DT + 1) * 32];
+            const float mx0 = fmaxf(m0, pm0), mx1 = fmaxf(m1, pm1);
+            const float a0 = exp2f((m0 - mx0) * scale_log2), b0 = exp2f((pm0 - mx0) * scale_log2);
+            const float a1 = exp2f((m1 - mx1) * scale_log2), b1 = exp2f((pm1 - mx1) * scale_log2);
+            m0 = mx0;
+            m1 = mx1;
+            l0 = l0 * a0 + pw[(4 * DT + 2) * 32] * b0;
+            l1 = l1 * a1 + pw[(4 * DT + 3) * 32] * b1;
+#pragma unroll
+            for (int t = 0; t < DT; ++t) {
+                o[t][0] = o[t][0] * a0 + pw[(4 * t) * 32] * b0;
+                o[t][1] = o[t][1] * a0 + pw[(4 * t + 1) * 32] * b0;
+                o[t][2] = o[t][2] * a1 + pw[(4 * t + 2) * 32] * b1;
+                o[t][3] = o[t][3] * a1 + pw[(4 * t + 3) * 32] * b1;
             }
+        }
+    }
+    if (!active) {  // every row of this query group is at or past kv_len
+        const int n = (T - r0 < 16 ? T - r0 : 16) * D;
+        for (int i = lane; nsplit == 1 && i < n; i += 32) out[base + (size_t)r0 * D + i] = 0.f;
+        return;
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const int ra = r0 + g, rb = r0 + g + 8;
+    if (nsplit > 1) {  // this part's softmax state, unnormalised, for flash_merge
+        const size_t prow = ((size_t)blockIdx.z * gridDim.y + bh) * T;
+        float* po = part + prow * D;
+        float* pml = part + (size_t)nsplit * gridDim.y * T * D + prow * 2;
+#pragma unroll
+        for (int t = 0; t < DT; ++t) {
+            const int c = t * 8 + 2 * tg;
+            if (ra < T) {
+                if (c < D) po[(size_t)ra * D + c] = o[t][0];
+                if (c + 1 < D) po[(size_t)ra * D + c + 1] = o[t][1];
+            }
+            if (rb < T) {
+                if (c < D) po[(size_t)rb * D + c] = o[t][2];
+                if (c + 1 < D) po[(size_t)rb * D + c + 1] = o[t][3];
+            }
+        }
+        if (tg == 0 && ra < T) {
+            pml[2 * ra] = m0;
+            pml[2 * ra + 1] = l0;
+        }
+        if (tg == 0 && rb < T) {
+            pml[2 * rb] = m1;
+            pml[2 * rb + 1] = l1;
+        }
+        return;
+    }
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;  // >= 1: each row saw a valid key
+#pragma unroll
+    for (int t = 0; t < DT; ++t) {
+        const int c = t * 8 + 2 * tg;
+        if (ra < T) {
+            if (c < D) out[base + (size_t)ra * D + c] = o[t][0] * inv0;
+            if (c + 1 < D) out[base + (size_t)ra * D + c + 1] = o[t][1] * inv0;
+        }
+        if (rb < T) {
+            if (c < D) out[base + (size_t)rb * D + c] = o[t][2] * inv1;
+            if (c + 1 < D) out[base + (size_t)rb * D + c + 1] = o[t][3] * inv1;
+        }
     }
 }
 
-template <int NC4>
-cudaError_t launch(const float* q, const float* k, const float* v, const int* kv_lens,
-                   float* out, int BH, int T, int D, int dp, float scale,
-                   cudaStream_t stream) {
-    const size_t bytes = smem_bytes(dp);
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_f32<NC4>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+// Merges the nsplit parts of each valid row (t < kv_len) of flash_fwd_3xtf32:
+// out = sum_z 2^((m_z - M) c) o_z / sum_z 2^((m_z - M) c) l_z, M = max_z m_z;
+// rows at or past kv_len come out 0.  One warp a row, lanes over columns.
+__global__ void __launch_bounds__(256)
+flash_merge(const float* __restrict__ part, const int* __restrict__ kv_lens,
+            float* __restrict__ out, int nsplit, int T, int D, float scale_log2) {
+    const int t = blockIdx.x * 8 + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    const int bh = blockIdx.y, BH = gridDim.y;
+    if (t >= T) return;
+    float* orow = out + ((size_t)bh * T + t) * D;
+    int kv_len = kv_lens[bh];
+    kv_len = kv_len < 0 ? 0 : (kv_len > T ? T : kv_len);
+    if (t >= kv_len) {
+        for (int c = lane; c < D; c += 32) orow[c] = 0.f;
+        return;
+    }
+    const int n_tiles = (kv_len + BKV - 1) / BKV;
+    const int per = (n_tiles + nsplit - 1) / nsplit;
+    const int nz = (n_tiles + per - 1) / per;  // parts that saw keys
+    const float* pml = part + (size_t)nsplit * BH * T * D;
+    float mx = MASKED;
+    for (int z = 0; z < nz; ++z) mx = fmaxf(mx, pml[(((size_t)z * BH + bh) * T + t) * 2]);
+    float l = 0.f;
+    for (int z = 0; z < nz; ++z) {
+        const float* ml = pml + (((size_t)z * BH + bh) * T + t) * 2;
+        l += exp2f((ml[0] - mx) * scale_log2) * ml[1];
+    }
+    const float inv = 1.f / l;
+    for (int c = lane; c < D; c += 32) {
+        float acc = 0.f;
+        for (int z = 0; z < nz; ++z) {
+            const size_t row = ((size_t)z * BH + bh) * T + t;
+            acc += exp2f((pml[row * 2] - mx) * scale_log2) * part[row * D + c];
+        }
+        orow[c] = acc * inv;
+    }
+}
+
+using Kernel = void (*)(const float*, const float*, const float*, const int*, float*, float*,
+                        int, int, int, float, int);
+
+// How a call is cut: 16-row query groups a block (wq), warps a group (ks),
+// parts each head's key tiles are split into (nsplit), the kernel (by the
+// output tiles a warp holds and ks), its dynamic shared memory, and the
+// workspace floats for the parts.
+struct Plan {
+    int wq, ks, nsplit;
+    Kernel kernel;
+    size_t smem, workspace;
+};
+
+template <int DT>
+Kernel kernel_of(int ks) {
+    return ks == 4 ? flash_fwd_3xtf32<DT, 1> : ks == 2 ? flash_fwd_3xtf32<DT, 2>
+                                                       : flash_fwd_3xtf32<DT, 4>;
+}
+
+cudaError_t make_plan(int dev, int BH, int T, int D, Plan& p) {
+    int sms = 0, smem_max = 0;
+    cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return err;
-    const dim3 grid((T + BQ - 1) / BQ, BH);
-    flash_fwd_f32<NC4><<<grid, THREADS, bytes, stream>>>(q, k, v, kv_lens, out, T, D, dp,
-                                                          scale);
-    return cudaGetLastError();
+    // Query groups: the most (up to 8) that still give every SM a block and
+    // fit in shared memory.  The block's other warps split each group's key
+    // tiles (up to 4 warps a group), so that a block has 8 warps where it can.
+    const int dp = (D + 7) / 8 * 8;
+    const int ld = dp + 4;
+    const int dt = dp <= 64 ? 8 : dp <= 128 ? 16 : dp <= 192 ? 24 : 32;
+    const auto split_of = [](int wq) { return MAX_WARPS / wq < 4 ? MAX_WARPS / wq : 4; };
+    const auto smem_bytes = [&](int wq) {
+        const size_t tiles = (size_t)2 * STAGES * BKV * ld;
+        const size_t parts = (size_t)wq * split_of(wq) * (4 * dt + 4) * 32;
+        return sizeof(float) * ((size_t)16 * wq * ld + (tiles > parts ? tiles : parts));
+    };
+    p.wq = MAX_WARPS;
+    while (p.wq > 1 && ((long long)BH * ((T + 16 * p.wq - 1) / (16 * p.wq)) < sms ||
+                        smem_bytes(p.wq) > (size_t)smem_max))
+        p.wq /= 2;
+    p.ks = split_of(p.wq);
+    p.smem = smem_bytes(p.wq);
+    p.kernel = dt == 8 ? kernel_of<8>(p.ks) : dt == 16 ? kernel_of<16>(p.ks)
+             : dt == 24 ? kernel_of<24>(p.ks) : kernel_of<32>(p.ks);
+    // the device's limit, not this plan's size: plans share kernels
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(p.kernel),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+    int resident = 0;  // blocks an SM holds at once
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &resident, reinterpret_cast<const void*>(p.kernel), 32 * p.wq * p.ks, p.smem);
+    if (err != cudaSuccess) return err;
+    // A block's key loop is serial, and serving pads most rows (its blocks past
+    // kv_len return at once), so where the blocks are few against what the card
+    // holds, each head's key tiles are cut into parts, a block each, at least
+    // MIN_SPLIT_TILES tiles a part, merged by flash_merge.
+    const long long blocks = (long long)BH * ((T + 16 * p.wq - 1) / (16 * p.wq));
+    const int by_len = (T + BKV * MIN_SPLIT_TILES - 1) / (BKV * MIN_SPLIT_TILES);
+    const int by_card = (int)(SPLIT_LOAD * resident * sms / blocks + 0.5);
+    p.nsplit = by_len < by_card ? by_len : by_card;
+    p.nsplit = p.nsplit < 1 ? 1 : (p.nsplit > MAX_SPLIT ? MAX_SPLIT : p.nsplit);
+    p.workspace = p.nsplit > 1 ? (size_t)p.nsplit * BH * T * (D + 2) : 0;
+    return cudaSuccess;
+}
+
+// make_plan, once per (device, BH, T, D)
+cudaError_t plan_for(int BH, int T, int D, Plan& p) {
+    static std::mutex mu;
+    static std::map<std::tuple<int, int, int, int>, Plan> plans;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const auto key = std::make_tuple(dev, BH, T, D);
+    std::lock_guard<std::mutex> lock(mu);
+    const auto it = plans.find(key);
+    if (it != plans.end()) {
+        p = it->second;
+        return cudaSuccess;
+    }
+    err = make_plan(dev, BH, T, D, p);
+    if (err == cudaSuccess) plans.emplace(key, p);
+    return err;
 }
 
 }  // namespace
 
+// Floats of device workspace that flash_attention_fwd_f32 needs for these
+// sizes on the current device (0: none), or -1 on a CUDA error.
+extern "C" long long flash_attention_workspace_floats(int BH, int T, int D) {
+    Plan p;
+    if (BH <= 0 || T <= 0 || D <= 0 || D > 256) return 0;
+    return plan_for(BH, T, D, p) == cudaSuccess ? (long long)p.workspace : -1;
+}
+
 // q, k, v, out: contiguous (BH, T, D) float32 on the device; kv_lens: (BH,)
-// int32 on the device.  Returns a cudaError_t (0 on success).
+// int32 on the device; workspace: flash_attention_workspace_floats(BH, T, D)
+// floats on the device (may be null when that is 0).  Returns a cudaError_t
+// (0 on success).
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
-                                       const void* kv_lens, void* out, int BH, int T,
-                                       int D, void* stream) {
+                                       const void* kv_lens, void* out, void* workspace,
+                                       int BH, int T, int D, void* stream) {
     if (BH <= 0 || T <= 0 || D <= 0 || D > 256 || BH > 65535)
         return (int)cudaErrorInvalidValue;
-    const int dp = (D + 3) / 4 * 4;
-    const float scale = (float)(1.0 / sqrt((double)D));
-    const auto* qf = static_cast<const float*>(q);
-    const auto* kf = static_cast<const float*>(k);
-    const auto* vf = static_cast<const float*>(v);
+    Plan p;
+    cudaError_t err = plan_for(BH, T, D, p);
+    if (err != cudaSuccess) return (int)err;
+    if (p.workspace > 0 && workspace == nullptr) return (int)cudaErrorInvalidValue;
+    const auto aligned = [](const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0; };
+    const int vec = D % 4 == 0 && aligned(q) && aligned(k) && aligned(v);
+    const int dp = (D + 7) / 8 * 8;
+    const float scale_log2 = (float)(LOG2E / sqrt((double)D));
     const auto* lens = static_cast<const int*>(kv_lens);
     auto* of = static_cast<float*>(out);
+    auto* ws = static_cast<float*>(workspace);
     auto s = static_cast<cudaStream_t>(stream);
-    switch ((dp + 63) / 64) {
-        case 1: return (int)launch<1>(qf, kf, vf, lens, of, BH, T, D, dp, scale, s);
-        case 2: return (int)launch<2>(qf, kf, vf, lens, of, BH, T, D, dp, scale, s);
-        case 3: return (int)launch<3>(qf, kf, vf, lens, of, BH, T, D, dp, scale, s);
-        default: return (int)launch<4>(qf, kf, vf, lens, of, BH, T, D, dp, scale, s);
-    }
+    const dim3 grid((T + 16 * p.wq - 1) / (16 * p.wq), BH, p.nsplit);
+    p.kernel<<<grid, 32 * p.wq * p.ks, p.smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        lens, of, ws, T, D, dp, scale_log2, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || p.nsplit == 1) return (int)err;
+    flash_merge<<<dim3((T + 7) / 8, BH), 256, 0, s>>>(ws, lens, of, p.nsplit, T, D, scale_log2);
+    return (int)cudaGetLastError();
 }

@@ -5,16 +5,22 @@ The kernel (``csrc/flash_attention.cu``) replaces the Pallas kernel of
 ``e2e_tts_tpu/kernels/flash_attention.py`` (``_flash_fwd_kernel``, launched by
 ``_fwd_impl``).  It computes ``softmax(q k^T / sqrt(D)) v`` over (BH, T, D)
 with the keys at or past ``kv_lens[bh]`` scoring -1e30.  On the H100 it is bound
-by float32 operations (about 2,000 flops per byte at the decoder's shapes), and
-the float32 path has no tensor cores; the kernel keeps the query tile in shared
-memory, loops over key/value tiles inside the block with an online softmax, and
-register-tiles both products (see the source's header).
+by operations.  Both products run on the tensor cores in 3xTF32 (each operand
+split into two TF32 parts, three ``mma.sync`` products per fragment), which
+keeps the float32 bar of 2e-5 that a single TF32 product misses.  Each warp
+owns 16 query rows with an online softmax over 32-row key/value tiles that a
+two-stage ``cp.async`` ring brings in; query rows and key tiles past
+``kv_len`` cost no key loop.  A block has up to 8 warps: as many 16-row query
+groups as still spread over the SMs, the rest splitting each group's key tiles.
+Where the blocks are still few, each head's keys are cut into parts, one block
+each, merged by a second small kernel; the wrapper allocates the workspace the
+parts need (see the source's header).
 
 ``flash_attention`` is the one entry point.  A CPU tensor goes to
 ``attention_plain``; a CUDA tensor launches the kernel or raises.  Float32
 only: any other dtype, a non-contiguous input or a CPU/CUDA mix raises.
-Padded query rows (t >= kv_len) are meaningless, and a row with kv_len = 0
-comes out 0.
+Padded query rows (t >= kv_len) are meaningless but finite (zeros at least in
+every 16-row group past kv_len), and a head with kv_len = 0 comes out 0.
 """
 
 from __future__ import annotations
@@ -31,14 +37,19 @@ _bound = None
 
 
 def _kernel():
+    """(workspace_floats, fwd): the library's two C entry points."""
     global _bound
     if _bound is None:
         from .build import library
 
-        fn = library("flash_attention").flash_attention_fwd_f32
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _bound = fn
+        lib = library("flash_attention")
+        ws = lib.flash_attention_workspace_floats
+        ws.argtypes = [ctypes.c_int] * 3
+        ws.restype = ctypes.c_longlong
+        fwd = lib.flash_attention_fwd_f32
+        fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fwd.restype = ctypes.c_int
+        _bound = ws, fwd
     return _bound
 
 
@@ -77,10 +88,15 @@ def flash_attention(q, k, v, kv_lens):
         raise ValueError(f"head dim {D} outside 1..{MAX_HEAD_DIM}")
     lens = kv_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    workspace_floats, fwd = _kernel()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-                        out.data_ptr(), BH, T, D, stream)
+        n = workspace_floats(BH, T, D)  # where the kernel splits each head's keys
+        if n < 0:
+            raise RuntimeError("flash_attention: the CUDA device could not be queried")
+        ws = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
+        err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                  ws.data_ptr() if n else None, BH, T, D, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     flash_attention.launches += 1

@@ -25,6 +25,12 @@ CASES = [  # (seed, BH, T, D, kv_lens)
     (2, 3, 130, 24, (130, 0, 1)),
     (3, 3, 77, 256, (77, 5, 0)),
     (4, 16, 1024, 192, (1024, 1, 0) + (700,) * 13),
+    (6, 4, 1152, 192, (957, 957, 4, 4)),  # serving's largest bucket
+    (7, 4, 384, 192, (88, 88, 4, 4)),  # 96 blocks of 16 rows: fewer than the SMs
+    (8, 2, 300, 100, (300, 17)),  # D not a multiple of 8
+    (9, 2, 70, 27, (70, 33)),  # D not a multiple of 4: 4-byte copies
+    (10, 2, 50, 1, (50, 3)),  # D = 1
+    (11, 2, 40, 256, (40, 17)),  # D = 256
 ]
 
 
@@ -58,6 +64,39 @@ def test_flash_kernel_matches_plain(cuda, seed, BH, T, D, lens):
             assert (out[b, :n] - ref[b, :n]).abs().max().item() < TOL, b
         else:
             assert not out[b].any()
+
+
+def test_flash_kernel_rows_past_kv_len(cuda):
+    """Rows at or past kv_len are finite, a kv_len = 0 head is all zeros, and
+    a 16-row group with no valid row (no key loop) is zeros too."""
+    lens = (957, 0, 4, 1152)
+    q, k, v, kv = _inputs(12, 4, 1152, 192, lens, cuda)
+    out = flash_attention(q, k, v, kv)
+    torch.cuda.synchronize()
+    ref = attention_plain(q, k, v, kv)
+    assert torch.isfinite(out).all()
+    assert not out[1].any()
+    assert not out[0, 960:].any() and not out[2, 16:].any()
+    for b, n in enumerate(lens):
+        if n:
+            assert (out[b, :n] - ref[b, :n]).abs().max().item() < TOL, b
+
+
+def test_flash_kernel_shapes_in_turn(cuda):
+    """Shapes in turn whose launches share a compiled kernel with different
+    shared memory and key splits (the launch plan is kept per shape)."""
+    for seed, (BH, T, D, lens) in enumerate([(4, 1152, 192, (957, 957, 4, 4)),
+                                             (4, 384, 192, (88, 88, 4, 4)),
+                                             (4, 1152, 192, (957, 0, 4, 1152)),
+                                             (16, 256, 192, (256, 17) * 8)]):
+        q, k, v, kv = _inputs(20 + seed, BH, T, D, lens, cuda)
+        out = flash_attention(q, k, v, kv)
+        torch.cuda.synchronize()
+        ref = attention_plain(q, k, v, kv)
+        assert torch.isfinite(out).all()
+        for b, n in enumerate(lens):
+            if n:
+                assert (out[b, :n] - ref[b, :n]).abs().max().item() < TOL, (T, b)
 
 
 def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(cuda):

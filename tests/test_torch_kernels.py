@@ -5,6 +5,11 @@ On the CPU the wrapper runs the plain version; the CUDA kernel itself is held
 to the plain version by ``tests/test_torch_cuda.py`` (skipped without a GPU)
 and by ``chip_smoke.py`` on the card.  Bar: max error < 2e-5 on valid query rows
 (the JAX kernel test's bar), every row finite, kv_len = 0 included.
+
+The kernel's products run on the tensor cores in 3xTF32; a numpy emulation of
+its arithmetic (TF32 rounding of each operand's two parts, three products
+summed in float32, the online softmax over its 32-key tiles) shows that this
+split holds the bar and that one TF32 product does not.
 """
 
 import jax.numpy as jnp
@@ -25,10 +30,10 @@ CASES = [  # (seed, BH, T, D, kv_lens): the JAX kernel test's shapes, D=24, kv_l
 ]
 
 
-def _inputs(seed, BH, T, D, lens):
+def _inputs(seed, BH, T, D, lens, scale=0.3):
     rng = np.random.RandomState(seed)
-    q = (rng.randn(BH, T, D) * 0.3).astype(np.float32)
-    k = (rng.randn(BH, T, D) * 0.3).astype(np.float32)
+    q = (rng.randn(BH, T, D) * scale).astype(np.float32)
+    k = (rng.randn(BH, T, D) * scale).astype(np.float32)
     v = rng.randn(BH, T, D).astype(np.float32)
     return q, k, v, np.asarray(lens, np.int32)
 
@@ -68,5 +73,70 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 def test_kernel_sources_ship_with_the_module():
     from e2e_tts_tpu_torch.kernels import build
 
-    assert open(f"{build.CSRC}/flash_attention.cu").read().count("flash_attention_fwd_f32")
+    src = open(f"{build.CSRC}/flash_attention.cu").read()
+    assert src.count("flash_attention_fwd_f32") and src.count("flash_attention_workspace_floats")
+    # both products on the tensor cores (3xTF32 mma.sync), K/V tiles by cp.async
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    assert "cp.async.cg.shared.global" in src
     assert "compute_90a,code=sm_90a" in " ".join(build.NVCC_FLAGS)
+
+
+def _tf32(x):
+    """Round float32 to TF32 (10-bit mantissa), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` does."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_matmul(a, b, products):
+    """a @ b with TF32 operands and a float32 sum: big*big alone (1), or with
+    the two cross terms of the split x = big + small (3)."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if products == 1:
+        return a_big @ b_big
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_big @ b_small + a_small @ b_big + a_big @ b_big
+
+
+def _kernel_arithmetic(q, k, v, lens, products, bkv=32):
+    """The CUDA kernel's arithmetic in numpy float32: raw scores, a running
+    max over 32-key tiles, exp2 of (s - max) * log2(e) / sqrt(D)."""
+    BH, T, D = q.shape
+    c = np.float32(np.log2(np.e) / np.sqrt(D))
+    out = np.zeros_like(q)
+    for b, n in enumerate(lens):
+        m = np.full((T, 1), -1e30, np.float32)
+        l = np.zeros((T, 1), np.float32)
+        o = np.zeros((T, D), np.float32)
+        for j in range(0, n, bkv):
+            e = min(j + bkv, n)  # the masked keys of the last tile add exactly 0
+            s = _tf32_matmul(q[b], k[b, j:e].T, products)
+            m_new = np.maximum(m, s.max(-1, keepdims=True))
+            alpha = np.exp2((m - m_new) * c)
+            p = np.exp2((s - m_new) * c)
+            l = l * alpha + p.sum(-1, keepdims=True)
+            o = o * alpha + _tf32_matmul(p, v[b, j:e], products)
+            m = m_new
+        if n:
+            out[b] = o / l
+    return out
+
+
+EMULATED = [c + (0.3,) for c in CASES] + [(5, 4, 1152, 192, (957, 957, 4, 4), 2.0)]
+
+
+@pytest.mark.parametrize("seed,BH,T,D,lens,scale", EMULATED,
+                         ids=[f"{c[1]}x{c[2]}x{c[3]}-qk{c[5]}" for c in EMULATED])
+def test_3xtf32_holds_the_bar_and_1xtf32_misses_it(seed, BH, T, D, lens, scale):
+    q, k, v, kv = _inputs(seed, BH, T, D, lens, scale)
+    plain = attention_plain(*map(torch.from_numpy, (q, k, v, kv))).numpy()
+    ref = np.asarray(attention_reference(*map(jnp.asarray, (q, k, v, kv))))
+
+    def err(a, b):
+        return max(np.abs(a[i, :n] - b[i, :n]).max() for i, n in enumerate(lens) if n)
+
+    three = _kernel_arithmetic(q, k, v, lens, products=3)
+    one = _kernel_arithmetic(q, k, v, lens, products=1)
+    assert np.isfinite(three).all()
+    assert err(three, plain) < TOL and err(three, ref) < TOL, (err(three, plain), err(three, ref))
+    assert err(one, plain) >= TOL, err(one, plain)

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import Dict
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -25,6 +26,9 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# serving threads (the batching queue's worker, callers of the engine) may
+# reach a kernel's first use together: one of them builds it, the rest wait
+_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -49,21 +53,24 @@ def compiler_log(name: str) -> str:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, compiled first if its
     hashed ``.so`` is missing.  A failed compile prints the compiler's
-    output and raises."""
-    if name in _LIBS:
+    output and raises.  Threads of one process build a kernel once (a
+    lock); other processes may build the same file beside it, each into a
+    temporary name of its own, renamed into place."""
+    with _LOCK:
+        if name in _LIBS:
+            return _LIBS[name]
+        src = os.path.join(CSRC, f"{name}.cu")
+        out = _output(name)
+        if not os.path.exists(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                print(proc.stdout, end="", flush=True)
+                raise RuntimeError(f"nvcc failed for {src}")
+            with open(f"{out}.log", "w") as f:
+                f.write(proc.stdout)
+            os.replace(tmp, out)
+        _LIBS[name] = ctypes.CDLL(out)
         return _LIBS[name]
-    src = os.path.join(CSRC, f"{name}.cu")
-    out = _output(name)
-    if not os.path.exists(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            print(proc.stdout, end="", flush=True)
-            raise RuntimeError(f"nvcc failed for {src}")
-        with open(f"{out}.log", "w") as f:
-            f.write(proc.stdout)
-        os.replace(tmp, out)
-    _LIBS[name] = ctypes.CDLL(out)
-    return _LIBS[name]

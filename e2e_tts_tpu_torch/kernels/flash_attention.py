@@ -26,6 +26,7 @@ every 16-row group past kv_len), and a head with kv_len = 0 comes out 0.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -34,23 +35,33 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 
 _bound = None
+# the binding and the launch count are shared by every thread that serves
+_LOCK = threading.Lock()
 
 
 def _kernel():
     """(workspace_floats, fwd): the library's two C entry points."""
     global _bound
-    if _bound is None:
-        from .build import library
+    with _LOCK:
+        if _bound is None:
+            from .build import library
 
-        lib = library("flash_attention")
-        ws = lib.flash_attention_workspace_floats
-        ws.argtypes = [ctypes.c_int] * 3
-        ws.restype = ctypes.c_longlong
-        fwd = lib.flash_attention_fwd_f32
-        fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fwd.restype = ctypes.c_int
-        _bound = ws, fwd
-    return _bound
+            lib = library("flash_attention")
+            ws = lib.flash_attention_workspace_floats
+            ws.argtypes = [ctypes.c_int] * 3
+            ws.restype = ctypes.c_longlong
+            fwd = lib.flash_attention_fwd_f32
+            fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fwd.restype = ctypes.c_int
+            _bound = ws, fwd
+        return _bound
+
+
+def _count_launch() -> None:
+    """One more launch in ``flash_attention.launches`` (a locked add: ``+=`` on
+    an attribute is not atomic across threads)."""
+    with _LOCK:
+        flash_attention.launches += 1
 
 
 def attention_plain(q, k, v, kv_lens):
@@ -99,7 +110,7 @@ def flash_attention(q, k, v, kv_lens):
                   ws.data_ptr() if n else None, BH, T, D, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
-    flash_attention.launches += 1
+    _count_launch()
     return out
 
 

@@ -1,23 +1,39 @@
 """Vocoder wiring (port of ``e2e_tts_tpu/models/vocoder.py``): generator
-selection and weight-norm fusing.  The iSTFTNet head waits (ROADMAP.md, A4)."""
+selection, the iSTFTNet head's inverse STFT, and weight-norm fusing."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..config import Config
+from ..audio.mel import inverse_stft
+from ..config import Config, IstftNetConfig
 from ..nn.common import fuse_weight_norm as _fuse
-from ..nn.hifigan import HifiGanGenerator
+from ..nn.hifigan import HifiGanGenerator, IstftNetGenerator
 
 
 def build_generator(config: Config, kind: str = "hifigan", **kw):
-    """kind "hifigan"; ``kw`` (device, generator, seed) go to the module."""
+    """kind "hifigan" or "istft"; ``kw`` (device, generator, seed) go to the module."""
     if kind == "hifigan":
         return HifiGanGenerator.from_config(config.models.hifigan,
                                             config.audio.mel.channels, **kw)
     if kind == "istft":
-        raise NotImplementedError("the iSTFTNet vocoder is not ported yet (ROADMAP.md, A4)")
+        return IstftNetGenerator.from_config(config.models.istft,
+                                             config.audio.mel.channels, **kw)
     raise ValueError(f"unknown vocoder kind {kind!r}")
+
+
+def istft_to_audio(spec, phase, cfg: IstftNetConfig):
+    """(B, bins, T), (B, bins, T) -> (B, samples)."""
+    return inverse_stft(spec, phase, n_fft=cfg.gen_istft_n_fft,
+                        hop_length=cfg.gen_istft_hop_size, win_length=cfg.gen_istft_win_size)
+
+
+def vocode(generator, mel, config: Config, kind: str = "hifigan"):
+    """mel (B, T, n_mels) -> audio (B, samples)."""
+    if kind == "hifigan":
+        return generator(mel)
+    spec, phase = generator(mel)
+    return istft_to_audio(spec, phase, config.models.istft)
 
 
 def fuse_weight_norm(params):

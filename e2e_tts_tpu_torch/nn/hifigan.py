@@ -1,9 +1,8 @@
-"""HiFi-GAN generator (port of ``e2e_tts_tpu/nn/hifigan.py``).
+"""HiFi-GAN and iSTFTNet generators (port of ``e2e_tts_tpu/nn/hifigan.py``).
 
 Weight norm is fused into plain kernels when weights are carried across
 (``convert.py``), the serving form.  The stack runs channels-first inside;
-the public ``forward`` takes (B, T, n_mels) like the JAX package.  The
-iSTFTNet head waits (ROADMAP.md, A4).
+the public ``forward`` takes (B, T, n_mels) like the JAX package.
 """
 
 from __future__ import annotations
@@ -127,3 +126,46 @@ class HifiGanGenerator(nn.Module):
         x = self.trunk(mel.transpose(1, 2))
         x = self.conv_post.conv_ncw(_lrelu(x, FINAL_SLOPE).float())
         return torch.tanh(x)[:, 0, :]
+
+
+class IstftNetGenerator(nn.Module):
+    """iSTFTNet head: the trunk's two upsample stages, then a per-frame
+    spectrum, magnitude ``exp`` and phase ``sin``, which
+    ``models.vocoder.istft_to_audio`` inverts.  mel (B, T, n_mels) ->
+    (spec, phase), each (B, n_fft // 2 + 1, T * prod(rates) + 1)."""
+
+    def __init__(self, n_mels: int = 80, gen_istft_n_fft: int = 16,
+                 upsample_rates: Tuple[int, ...] = (8, 8),
+                 upsample_kernel_sizes: Tuple[int, ...] = (16, 16),
+                 upsample_initial_channel: int = 512,
+                 resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11),
+                 resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
+                 resblock_type: int = 1, *, device=None,
+                 generator: Optional[torch.Generator] = None, seed: int = 0):
+        super().__init__()
+        g = generator if generator is not None else torch.Generator().manual_seed(seed)
+        kw = dict(generator=g, device=device)
+        self.n_fft = gen_istft_n_fft
+        self.trunk = _GeneratorTrunk(n_mels, upsample_rates, upsample_kernel_sizes,
+                                     upsample_initial_channel, resblock_kernel_sizes,
+                                     resblock_dilation_sizes, resblock_type, **kw)
+        self.conv_post = Conv1d(self.trunk.out_channels, gen_istft_n_fft + 2, 7,
+                                std=WN_STD, **kw)
+        self.eval()
+        self.requires_grad_(False)
+
+    @classmethod
+    def from_config(cls, cfg, n_mels: int = 80, **kw):
+        return cls(n_mels, cfg.gen_istft_n_fft, tuple(cfg.upsample_rates),
+                   tuple(cfg.upsample_kernel_sizes), cfg.upsample_initial_channel,
+                   tuple(cfg.resblock_kernel_sizes),
+                   tuple(tuple(d) for d in cfg.resblock_dilation_sizes), cfg.resblock, **kw)
+
+    @torch.no_grad()
+    def forward(self, mel):
+        x = _lrelu(self.trunk(mel.transpose(1, 2)), FINAL_SLOPE).float()
+        # the reference's reflection pad (1, 0) on time: sample 1 in front
+        x = torch.cat([x[..., 1:2], x], dim=-1)
+        x = self.conv_post.conv_ncw(x)
+        half = self.n_fft // 2 + 1
+        return torch.exp(x[:, :half]), torch.sin(x[:, half:])

@@ -1,12 +1,16 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port on the card: its CUDA kernels against their plain PyTorch
+versions, its audio ops on CUDA against the CPU, and the batching queue on a
+small CUDA engine.
 
 Every test here is marked ``cuda`` and skips without a GPU.  The file imports
 no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Bar: max error < 2e-5 on valid query rows, every row finite (kv_len = 0
-included).
+Bars: attention max error < 2e-5 on valid query rows, every row finite
+(kv_len = 0 included); log-mel MAE < 1e-4 and ``inverse_stft`` max < 1e-4
+against the CPU, and ``inverse_stft`` bit-equal run to run; the queue's
+results equal to a solo ``synthesize`` within 1 LSB on average.
 """
 
 import numpy as np
@@ -110,3 +114,64 @@ def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):  # head dim past the kernel's 256
         big = torch.zeros(1, 8, 264, device=cuda)
         flash_attention(big, big, big, torch.tensor([8], dtype=torch.int32, device=cuda))
+
+
+# --- audio ops and the queue on the card ------------------------------------------------
+
+def test_audio_ops_on_cuda_match_cpu(cuda):
+    from e2e_tts_tpu_torch.audio import MelParams, inverse_stft, mel_spectrogram
+
+    rng = np.random.RandomState(30)
+    audio = torch.from_numpy((0.3 * rng.randn(2, 3 * 22050)).astype(np.float32))
+    p = MelParams()
+    mel_g, e_g = mel_spectrogram(audio.to(cuda), p, return_energy=True)
+    mel_c, e_c = mel_spectrogram(audio, p, return_energy=True)
+    assert (mel_g.cpu() - mel_c).abs().mean().item() < 1e-4
+    assert (e_g.cpu() - e_c).abs().max().item() < 2e-2
+    for n_fft, hop, win, frames in ((16, 4, 16, 4000), (1024, 256, 1024, 200)):
+        mag = torch.from_numpy(np.exp(rng.randn(2, n_fft // 2 + 1, frames)).astype(np.float32))
+        ph = torch.from_numpy(rng.uniform(-3, 3, mag.shape).astype(np.float32))
+        out = inverse_stft(mag.to(cuda), ph.to(cuda), n_fft, hop, win)
+        again = inverse_stft(mag.to(cuda), ph.to(cuda), n_fft, hop, win)
+        ref = inverse_stft(mag, ph, n_fft, hop, win)
+        assert torch.equal(out, again)  # the overlap-add is deterministic
+        assert out.shape == ref.shape and (out.cpu() - ref).abs().max().item() < 1e-4
+
+
+def test_batching_server_on_cuda(cuda):
+    import threading
+
+    from e2e_tts_tpu_torch.config import default_config
+    from e2e_tts_tpu_torch.serve import BatchingServer, SynthesisEngine
+
+    cfg = default_config()
+    fs2 = cfg.models.fastspeech2
+    small = fs2.replace(encoder_layers=1, decoder_layers=1, encoder_hidden=64, decoder_hidden=64,
+                        building_block=fs2.building_block.replace(
+                            transformer=fs2.building_block.transformer.replace(
+                                conv_filter_size=64)),
+                        postnet=fs2.postnet.replace(embedding_dim=64, conv_layers=2))
+    cfg = cfg.replace(models=cfg.models.replace(fastspeech2=small))
+    eng = SynthesisEngine.from_random(seed=0, config=cfg, device=cuda)
+    texts = ["xin chào bạn", "hôm nay trời đẹp", "em yêu hoa lá", "núi sông hùng vĩ " * 20]
+    solo = [eng.synthesize(t, silence_distance=0.0) for t in texts]
+    futures = [None] * len(texts)
+    before = flash_attention.launches
+    with BatchingServer(eng, max_wait_ms=50.0) as srv:
+        barrier = threading.Barrier(len(texts))
+
+        def go(i):
+            barrier.wait(timeout=60)
+            futures[i] = srv.submit(texts[i], silence_distance=0.0)
+
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(len(texts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        outs = [f.result(timeout=300) for f in futures]
+    assert flash_attention.launches > before  # the long text's decoder runs at T >= 256
+    for out, ref in zip(outs, solo):
+        assert len(out) == len(ref) > 0
+        assert np.abs(out.astype(np.int32) - ref.astype(np.int32)).mean() < 1.0

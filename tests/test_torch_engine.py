@@ -11,9 +11,14 @@ package's, on the CPU.
   The bucket decisions must be the JAX engine's, since they change the
   output: a long text that chunks, a forced stage-2 overflow re-render and
   an overflow re-split all take the same path on both sides.
+- An iSTFTNet engine from a bundle that the JAX engine's ``save_checkpoint``
+  writes (``vie_tiny``'s acoustic weights, a narrow iSTFTNet initialised by
+  JAX): the same length and mean |diff| < 1 LSB; ``vocode_mel`` max |diff|
+  < 1e-4 on both vocoder kinds.
 - ``device=None`` without CUDA raises; the port imports no JAX.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -24,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from e2e_tts_tpu.nn.hifigan import IstftNetGenerator as JaxIstftNet
 from e2e_tts_tpu.serve.bundle import load_bundle as jax_load_bundle
 from e2e_tts_tpu.serve.engine import SynthesisEngine as JaxEngine
 from e2e_tts_tpu_torch.serve.bundle import load_bundle
@@ -155,6 +161,88 @@ def test_int16_waveform_matches_jax_encoding():
     np.testing.assert_array_equal(codes.numpy()[0], np.asarray(jeng._encode_transfer(x)))
 
 
+def _perturbed(params, seed):
+    """g * 1.7 and nonzero biases: the fuse matters, the output is no
+    near-silent init."""
+    rng = np.random.RandomState(seed)
+
+    def f(path, x):
+        x = np.asarray(x)
+        key = getattr(path[-1], "key", None)
+        if key == "g":
+            return x * 1.7
+        if key == "bias":
+            return x + 0.05 * rng.randn(*x.shape).astype(np.float32)
+        return x
+    return jax.tree_util.tree_map_with_path(f, params)
+
+
+@pytest.fixture(scope="module")
+def istft_engines(tmp_path_factory):
+    """A JAX iSTFTNet engine (vie_tiny's acoustic model, a narrow iSTFTNet
+    initialised by JAX), the bundle its ``save_checkpoint`` writes, and the
+    port's engine loaded from that bundle."""
+    cfg, aparams, _, speakers, stats, _, foreign, language = jax_load_bundle(VIE_TINY)
+    istft = cfg.models.istft.replace(upsample_initial_channel=32, resblock_kernel_sizes=(3, 7),
+                                     resblock_dilation_sizes=((1, 3), (1, 3)))
+    cfg = cfg.replace(models=cfg.models.replace(istft=istft))
+    gen = JaxIstftNet.from_config(istft)
+    vparams = jax.jit(functools.partial(gen.init, mel=jax.numpy.zeros((1, 8, 80))))(
+        jax.random.PRNGKey(5))
+    jeng = JaxEngine(cfg, aparams, _perturbed(vparams, 5), speakers, stats,
+                     vocoder_kind="istft", foreign_dict=foreign, language=language)
+    bundle = str(tmp_path_factory.mktemp("istft_bundle"))
+    jeng.save_checkpoint(bundle)
+    return jeng, SynthesisEngine.from_checkpoint(bundle, device="cpu")
+
+
+def test_istft_engine_from_jax_bundle_matches_jax(istft_engines):
+    jeng, peng = istft_engines
+    assert peng.vocoder_kind == "istft"
+    assert type(peng.vocoder).__name__ == "IstftNetGenerator"
+    for text in (*GOLDEN, LONG):
+        got, want = peng.synthesize(text), jeng.synthesize(text)
+        assert got.dtype == want.dtype == np.int16 and len(got) == len(want) > 0
+        assert np.abs(want.astype(np.int32)).mean() > 10  # a real signal
+        d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+        assert d.mean() < 1.0, (text[:20], d.mean(), d.max())
+    assert peng._fpp == jeng._fpp
+
+
+def test_vocode_mel_matches_jax(istft_engines):
+    mel = (np.random.RandomState(3).randn(150, 80) * 0.5 - 4.0).astype(np.float32)
+    for jeng, peng in (istft_engines, _engines()):
+        got, want = peng.vocode_mel(mel), jeng.vocode_mel(mel)
+        assert got.dtype == np.float32 and got.shape == want.shape == (150 * peng.hop_length,)
+        assert np.abs(got - want).max() < 1e-4
+        assert peng.vocode_mel(mel[:0]).shape == (0,)
+
+
+def test_engine_events_reach_on_event():
+    """Degraded-output events are kept in ``events`` and handed, in order, to
+    ``on_event`` when it is set, as the JAX engine does."""
+    _, peng = _engines()
+    seen = []
+    peng.on_event = seen.append
+    try:
+        n = len(peng.events)
+        peng.synthesize(LONG, duration_control=3.0)
+    finally:
+        peng.on_event = None
+    assert seen and seen == list(peng.events)[n:]
+
+
+def test_engine_options_the_port_does_not_take():
+    _, peng = _engines()
+    with pytest.raises(NotImplementedError, match="A7"):
+        peng.mel_content_features(np.zeros((10, 80), np.float32))
+    # the TPU's folded vocoder (B2) and the mu-law transfer codec are not ported
+    with pytest.raises(TypeError):
+        SynthesisEngine.from_checkpoint(VIE_TINY, device="cpu", use_folded_vocoder=True)
+    with pytest.raises(TypeError):
+        SynthesisEngine.from_checkpoint(VIE_TINY, device="cpu", transfer_codec="mulaw8")
+
+
 def test_device_none_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None resolves to it")
@@ -167,7 +255,11 @@ def test_device_none_without_cuda_raises():
 def test_port_imports_no_jax():
     modules = ["e2e_tts_tpu_torch.serve.engine", "e2e_tts_tpu_torch.serve.bundle",
                "e2e_tts_tpu_torch.convert", "e2e_tts_tpu_torch.kernels.build",
-               "e2e_tts_tpu_torch.kernels.flash_attention", "e2e_tts_tpu_torch.text.frontends"]
+               "e2e_tts_tpu_torch.kernels.flash_attention", "e2e_tts_tpu_torch.text.frontends",
+               "e2e_tts_tpu_torch.audio", "e2e_tts_tpu_torch.serve.streaming",
+               "e2e_tts_tpu_torch.serve.queue", "e2e_tts_tpu_torch.serve.inference",
+               "e2e_tts_tpu_torch.serve.audio_post", "e2e_tts_tpu_torch.models.denoiser",
+               "e2e_tts_tpu_torch.utils", "e2e_tts_tpu_torch.serve"]
     code = (f"import sys, {', '.join(modules)}\n"
             "from e2e_tts_tpu_torch.text.frontends import get_frontend\n"
             "[get_frontend(lang) for lang in ('vie', 'eng', 'mya')]\n"
@@ -175,7 +267,8 @@ def test_port_imports_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                          text=True, check=True, timeout=120).stdout.split()
-    assert "e2e_tts_tpu_torch.serve.engine" in out
+    assert {"e2e_tts_tpu_torch.serve.engine", "e2e_tts_tpu_torch.serve.queue",
+            "e2e_tts_tpu_torch.models.denoiser"} <= set(out)
     bad = [m for m in out if m in ("jax", "flax", "e2e_tts_tpu") or m.startswith(
         ("jax.", "flax.", "e2e_tts_tpu."))]
     assert not bad, bad

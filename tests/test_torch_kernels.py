@@ -12,6 +12,8 @@ summed in float32, the online softmax over its 32-key tiles) shows that this
 split holds the bar and that one TF32 product does not.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -140,3 +142,84 @@ def test_3xtf32_holds_the_bar_and_1xtf32_misses_it(seed, BH, T, D, lens, scale):
     assert np.isfinite(three).all()
     assert err(three, plain) < TOL and err(three, ref) < TOL, (err(three, plain), err(three, ref))
     assert err(one, plain) >= TOL, err(one, plain)
+
+
+# --- first use and launch counts from many threads ---------------------------------------
+
+def test_library_builds_once_when_threads_race(monkeypatch, tmp_path):
+    """Threads that reach a kernel's first use together: one compile (a stub
+    compiler here, slow enough that the threads overlap), one library object
+    for all, no temporary file left behind."""
+    import threading
+    import time
+
+    from e2e_tts_tpu_torch.kernels import build
+
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        time.sleep(0.2)
+        with open(cmd[cmd.index("-o") + 1], "wb") as f:
+            f.write(b"built")
+        return type("Done", (), {"returncode": 0, "stdout": "ptxas info: stub\n"})()
+
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(build.subprocess, "run", fake_run)
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: ("lib", path))
+    got = [None] * 6
+    start = threading.Barrier(len(got))
+
+    def first_use(i):
+        start.wait(timeout=30)
+        got[i] = build.library("flash_attention")
+
+    threads = [threading.Thread(target=first_use, args=(i,)) for i in range(len(got))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    assert len(calls) == 1
+    assert len(set(got)) == 1 and got[0][1].startswith(str(tmp_path))
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        [os.path.basename(got[0][1]), os.path.basename(got[0][1]) + ".log"])
+    assert build.compiler_log("flash_attention") == "ptxas info: stub\n"
+
+
+def test_launch_counts_from_threads_add_up():
+    """Each launch adds one under a lock: counts from many threads, switching
+    often, add up to the launches made."""
+    import importlib
+    import sys
+    import threading
+
+    # the module (the package's name ``flash_attention`` is the function)
+    fa = importlib.import_module("e2e_tts_tpu_torch.kernels.flash_attention")
+    n_threads, n_each = 8, 5000
+    before = flash_attention.launches
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [fa._count_launch() for _ in range(n_each)])
+                   for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    assert flash_attention.launches - before == n_threads * n_each
+    # the add waits on the lock (the interpreter may not switch threads inside
+    # ``+=``, so the sums above would add up without it)
+    with fa._LOCK:
+        t = threading.Thread(target=fa._count_launch)
+        t.start()
+        t.join(timeout=0.2)
+        assert t.is_alive() and flash_attention.launches - before == n_threads * n_each
+    t.join(timeout=30)
+    assert not t.is_alive() and flash_attention.launches - before == n_threads * n_each + 1
+    flash_attention.launches = before

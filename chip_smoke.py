@@ -8,10 +8,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
 2. build: every CUDA kernel of the port, compiled from the sources here, with
    the compiler's register and spill counts;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
-   main path's shapes, with its time, the plain version's, a library call's
-   (yardstick only) and the least time the card could take at the bar's
-   precision (``bound_ms``: the lesser of the float32-FMA and the 3xTF32
-   tensor-core bound);
+   main paths' shapes, with its time, the plain version's, a library call's
+   (yardstick only) and the least time the card could take for the work
+   (``bound_ms``; for attention at the bar's precision, the lesser of the
+   float32-FMA and the 3xTF32 tensor-core bound); the training kernels (MAS,
+   the CTC forward and backward) at the training buckets (32, 128, 768) and
+   (32, 256, 1024), ragged, with edge rows;
 4. path parity: the default-width FastSpeech2 stages on CUDA (kernels)
    against the same weights on the CPU (plain versions);
 5. serve: ``SynthesisEngine.from_random(seed=0)`` at default width answers a
@@ -35,14 +37,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
 11. ``Synthesizer`` (its wav read back equals the engine's int16; the speed
    change) and ``synthesize_denoised`` of a request that launches the
    kernels, on CUDA against the CPU;
-12. profile: one long request under ``torch.profiler`` (device busy share,
+12. training: the default-width FastSpeech2 with its aligner, from
+   ``torch.Generator().manual_seed(0)`` and ``use_flash=False``, on a batch of
+   32 made with numpy from seed 0 in the JAX ``_collate`` layout at the (128,
+   768) bucket: one step on CUDA against one on the CPU (4 rows, dropout 0,
+   step 30000: loss terms, gradients, durations); 5 timed ``make_train_step``
+   steps at step 0 and 5 at step 30000 with dropout on (finite losses; MAS
+   and the CTC forward and backward launched once a step each, and held to
+   their plain versions on the inputs the steps gave them); ``make_eval_step``
+   twice, equal; one step under ``torch.profiler``;
+13. profile: one long request under ``torch.profiler`` (device busy share,
    the kernels that take most device time, the port's own kernels' time);
-13. a JSON line of every kernel, then the JSON result as the last line.
+14. a JSON line of every kernel, then the JSON result as the last line.
 
-Each path that launches kernels (phases 5, 8, 9, 10 and 11) is driven with
-the launch counts set to 0 just before it and read just after, and each
+Each path that launches kernels (phases 5, 8, 9, 10, 11 and 12) is driven
+with the launch counts set to 0 just before it and read just after, and each
 kernel is held against its plain version on the first inputs that path gave
-it at each shape (``recorded_inputs``).  From phase 6 on, the random
+it (``recorded_inputs``, ``recorded_train_inputs``).  From phase 6 on, the random
 vocoders run with their last convolution scaled so that the waveform is at a
 speaking level (``make_audible``): the random weights alone give well under
 1 LSB.
@@ -57,6 +68,7 @@ import copy
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -80,6 +92,14 @@ LOGMEL_MAE = 1e-4  # log-mel mean |CUDA - CPU|
 ENERGY_TOL = 2e-2  # STFT energy max |CUDA - CPU| (a norm over 513 bins)
 ISTFT_TOL = 1e-4   # inverse STFT max |CUDA - CPU|
 LSB_TOL = 1.0      # int16 mean |diff| between two runs of one request
+CTC_RTOL = 1e-5    # CTC kernel loss against its plain version, relative
+CTC_GRAD_TOL = 1e-5  # CTC kernel gradient max |diff| against the plain one, x max |grad|
+# CUDA against CPU, one training step at default width: float32 sums in
+# another order through 12 layers, and atomics in the embedding and gather
+# backward passes (their sums change order from run to run)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+MAS_TIE = 1e-2     # durations may differ only where a MAS decision on the path is this close
 
 
 def log(msg: str) -> None:
@@ -119,16 +139,25 @@ def environment() -> str:
 
 # --- 2. build ------------------------------------------------------------------------
 
-KERNELS = ("flash_attention",)
+KERNELS = ("flash_attention", "mas", "ctc")  # the sources under kernels/csrc
 
 
 def build() -> None:
+    """Every source at once: one process (one nvcc) each, all started
+    together, then each library loaded here."""
     from e2e_tts_tpu_torch.kernels.build import compiler_log, library
 
     t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, "-c", "import sys; from e2e_tts_tpu_torch.kernels."
+                               "build import library; library(sys.argv[1])", name], cwd=here)
+             for name in KERNELS]
+    failed = [name for name, p in zip(KERNELS, procs) if p.wait() != 0]
+    if failed:
+        raise RuntimeError(f"build failed for {failed}")
     for name in KERNELS:
         library(name)
-    log(f"build: {len(KERNELS)} kernel(s) in {time.perf_counter() - t0:.1f} s")
+    log(f"build: {len(KERNELS)} sources in {time.perf_counter() - t0:.1f} s")
     for name in KERNELS:  # ptxas: registers and spills of each instantiation
         for line in compiler_log(name).splitlines():
             if "Compiling entry" in line or "spill" in line or "Used" in line:
@@ -200,6 +229,147 @@ def check_attention():
     return rows
 
 
+TRAIN_KERNEL_SHAPES = ((32, 128, 768), (32, 256, 1024))  # (B, L, T): the training buckets
+
+
+def ragged_lengths(rng, B, L, T):
+    """Text and mel lengths in [L/2, L] and [T/2, T]: row 0 full, then the
+    edge rows text_len 1, text_len 0 and mel_len < text_len."""
+    tl = rng.randint(L // 2, L + 1, B)
+    ml = rng.randint(T // 2, T + 1, B)
+    tl[0], ml[0] = L, T
+    tl[1], tl[2] = 1, 0
+    tl[3], ml[3] = L, L // 2
+    return tl, ml
+
+
+def training_bounds(tl, ml, B, T, L):
+    """Least times (ms) of the three training kernels for these lengths, and
+    what bounds each.  Only the valid cells count: text_len x mel_len of MAS's
+    input, mel_len frames x (text_len + 1) classes of the CTC's, 2 text_len + 1
+    states a frame.  Every output is written whole: MAS's (B, T, L) map, the
+    backward's (B, T, L + 1) gradient.  Operations at the float32 rate: 2 a
+    MAS cell (an add, a max); 12 a CTC state and frame (three exp, a log and
+    the adds and maxes of a three-way log-sum-exp), 4 more for the backward's
+    occupancy.  The serial depth of mel_len frames is not in these bounds."""
+    tl = np.asarray(tl, np.float64).clip(0, L)
+    ml = np.asarray(ml, np.float64).clip(0, T)
+    lens = 8.0 * B
+
+    def bound(nbytes, flops):
+        t_b, t_o = nbytes / PEAK_BYTES, flops / PEAK_FP32_FLOPS
+        return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+    states = float((ml * (2 * tl + 1)).sum())
+    ctc_in = 4.0 * float((ml * (tl + 1)).sum())
+    return dict(
+        mas=bound(4.0 * float((tl * ml).sum()) + 4.0 * B * T * L + lens, 2.0 * float((tl * ml).sum())),
+        ctc_fwd=bound(ctc_in + 4.0 * B + lens, 12.0 * states),
+        ctc_bwd=bound(ctc_in + 4.0 * B * T * (L + 1) + 8.0 * B + lens, 16.0 * states),
+    )
+
+
+def check_mas(la, tl, ml, where: str) -> float:
+    """The MAS kernel against its plain version: bit-equal, or raise."""
+    from e2e_tts_tpu_torch.kernels.mas import mas, mas_plain
+
+    out = mas(la, tl, ml)
+    torch.cuda.synchronize()
+    ref = mas_plain(la, tl, ml)
+    if not torch.equal(out, ref):
+        n = int((out != ref).sum())
+        raise AssertionError(f"mas: {n} cells differ from the plain version on {where}")
+    return 0.0
+
+
+def check_ctc(lp, kl, ql, where: str, g=None, saved=None):
+    """The CTC kernels against their plain versions: (loss max abs err, grad
+    max abs err), or raise past CTC_RTOL / CTC_GRAD_TOL.  ``g`` is the
+    backward's cotangent (1/B each when None, the batch mean's), ``saved`` the
+    (alpha, total) the backward kernel is given (the forward kernel's on these
+    inputs when None); the plain versions compute their own from ``lp``."""
+    from e2e_tts_tpu_torch.kernels.ctc import ctc_bwd, ctc_bwd_plain, ctc_fwd, ctc_fwd_plain
+
+    if g is None:
+        g = torch.full((lp.shape[0],), 1.0 / lp.shape[0], device=lp.device)
+    loss, alpha, total = ctc_fwd(lp, kl, ql)
+    if saved is not None:
+        alpha, total = saved
+    grad = ctc_bwd(g, lp, kl, ql, alpha, total)
+    torch.cuda.synchronize()
+    loss_p, alpha_p, total_p = ctc_fwd_plain(lp, kl, ql)
+    grad_p = ctc_bwd_plain(g, lp, kl, ql, alpha_p, total_p)
+    if not (torch.isfinite(loss).all() and torch.isfinite(grad).all()):
+        raise AssertionError(f"ctc: non-finite kernel output on {where}")
+    loss_err = float((loss - loss_p).abs().max())
+    rel = float(((loss - loss_p).abs() / loss_p.abs().clamp(min=1e-30)).max())
+    grad_err = float((grad - grad_p).abs().max())
+    gmax = float(grad_p.abs().max())
+    log(f"ctc on {where}: loss max rel err {rel:.3g}, grad max err {grad_err:.3g} "
+        f"(max |grad| {gmax:.3g})")
+    if not (rel < CTC_RTOL and grad_err < CTC_GRAD_TOL * gmax):
+        raise AssertionError(f"ctc on {where}: loss rel err {rel} (bar {CTC_RTOL}), grad err "
+                             f"{grad_err} (bar {CTC_GRAD_TOL} x {gmax})")
+    return loss_err, grad_err
+
+
+def check_training_kernels():
+    """MAS and the CTC forward/backward against their plain versions at the
+    training buckets, with ragged lengths and edge rows; their times, the
+    plain versions', ``F.ctc_loss`` forward and forward + backward (yardstick
+    only; the port never calls it) and the bounds.  Returns one row per shape."""
+    from e2e_tts_tpu_torch.kernels.ctc import ctc_bwd, ctc_bwd_plain, ctc_fwd, ctc_fwd_plain
+    from e2e_tts_tpu_torch.kernels.mas import mas, mas_plain
+    from e2e_tts_tpu_torch.ops.ctc import lattice_log_probs
+
+    rows = []
+    for B, L, T in TRAIN_KERNEL_SHAPES:
+        rng = np.random.RandomState(L)
+        tl_np, ml_np = ragged_lengths(rng, B, L, T)
+        tl = torch.from_numpy(tl_np).to(torch.int32).cuda()
+        ml = torch.from_numpy(ml_np).to(torch.int32).cuda()
+        la = torch.log_softmax(torch.from_numpy(rng.randn(B, T, L).astype(np.float32) * 3), -1).cuda()
+        mas_err = check_mas(la, tl, ml, f"({B}, {L}, {T})")
+        lp = lattice_log_probs(torch.from_numpy(rng.randn(B, T, L).astype(np.float32) * 2).cuda(), tl)
+        loss_err, grad_err = check_ctc(lp, tl, ml, f"({B}, {L}, {T})")
+        _, alpha, total = ctc_fwd(lp, tl, ml)
+        _, alpha_p, total_p = ctc_fwd_plain(lp, tl, ml)
+        g = torch.full((B,), 1.0 / B, device="cuda")
+
+        lp_lib = lp.detach().transpose(0, 1).requires_grad_()
+        targets = torch.cat([torch.arange(1, n + 1) for n in tl_np]).cuda()
+        tl64, ml64 = tl.long(), ml.long()
+        f_ctc = torch.nn.functional.ctc_loss
+
+        def library_ctc():
+            return f_ctc(lp_lib, targets, ml64, tl64, blank=0, reduction="mean",
+                         zero_infinity=True)
+
+        def library_ctc_fwd():
+            with torch.no_grad():
+                library_ctc()
+
+        row = dict(
+            shape=(B, L, T), text_lens=tl_np.tolist(), mel_lens=ml_np.tolist(),
+            mas_err=mas_err, ctc_loss_err=loss_err, ctc_grad_err=grad_err,
+            mas_ms=time_ms(lambda: mas(la, tl, ml)),
+            mas_plain_ms=time_ms(lambda: mas_plain(la, tl, ml), iters=2),
+            ctc_fwd_ms=time_ms(lambda: ctc_fwd(lp, tl, ml)),
+            ctc_fwd_plain_ms=time_ms(lambda: ctc_fwd_plain(lp, tl, ml), iters=2),
+            ctc_bwd_ms=time_ms(lambda: ctc_bwd(g, lp, tl, ml, alpha, total)),
+            ctc_bwd_plain_ms=time_ms(lambda: ctc_bwd_plain(g, lp, tl, ml, alpha_p, total_p),
+                                     iters=2),
+            ctc_library_fwd_ms=time_ms(library_ctc_fwd),
+            ctc_library_ms=time_ms(lambda: library_ctc().backward()),
+        )
+        for name, (ms, by) in training_bounds(tl_np, ml_np, B, T, L).items():
+            row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = ms, by
+        rows.append(row)
+        log("training kernels " + json.dumps({k: v for k, v in row.items()
+                                              if k not in ("text_lens", "mel_lens")}))
+    return rows
+
+
 # --- 4. path parity at default width -------------------------------------------------------
 
 def path_parity() -> None:
@@ -229,9 +399,10 @@ def path_parity() -> None:
     if bad:
         # the pre-rounding value on the CPU side: only a rounding tie may differ
         mask = sequence_mask(args[2], 320)
-        xe, _ = cpu.encoder(args[1], mask)
-        xe = xe + cpu.speaker_emb(args[0])[:, None, :]
-        val = torch.exp(cpu.variance_adaptor.duration_predictor(xe, mask)) - 1.0
+        with torch.no_grad():
+            xe, _ = cpu.encoder(args[1], mask)
+            xe = xe + cpu.speaker_emb(args[0])[:, None, :]
+            val = torch.exp(cpu.variance_adaptor.duration_predictor(xe, mask)) - 1.0
         for b, i in bad:
             frac = float(val[b, i] - torch.floor(val[b, i]))
             log(f"duration tie at ({b}, {i}): cpu {int(d_c[b, i])} cuda {int(d_g[b, i])} "
@@ -742,6 +913,259 @@ def synthesizer_and_denoiser(eng, cpu) -> float:
     return err
 
 
+# --- 12. acoustic training ---------------------------------------------------------------
+
+TRAIN_B, TRAIN_L, TRAIN_T = 32, 128, 768  # TrainConfig.batch_size; the dataset's (128, 768) bucket
+TRAIN_STEPS = 5
+TRAIN_SPEAKERS = 4
+PARITY_ROWS = 4
+ZERO_BY_CONSTRUCTION = re.compile(r"slf_attn\.w_k\.bias$|^postnet\.convs\.\d+\.bias$")
+
+
+def train_batch(n_symbols: int, B: int = TRAIN_B, L: int = TRAIN_L, T: int = TRAIN_T, seed: int = 0):
+    """numpy arrays in the order and layout of the JAX package's ``_collate``
+    (e2e_tts_tpu/data/dataset.py): text lengths in [L/2, L], mel lengths in
+    [T/2, T], words of 1-4 phonemes, random log-mels, normalised f0 with a
+    30% unvoiced share (f0 0 there), pitch, energy, and the beta-binomial
+    prior of each row."""
+    from e2e_tts_tpu_torch.audio import beta_binomial_prior
+
+    rng = np.random.RandomState(seed)
+    tl = rng.randint(L // 2, L + 1, B)
+    ml = rng.randint(T // 2, T + 1, B)
+    texts, word_ids = np.zeros((B, L), np.int64), np.zeros((B, L), np.int64)
+    mel = np.zeros((B, T, 80), np.float32)
+    prior = np.zeros((B, T, L), np.float32)
+    f0, uv, pitch, energy = (np.zeros((B, T), np.float32) for _ in range(4))
+    for b in range(B):
+        n, m = tl[b], ml[b]
+        texts[b, :n] = rng.randint(1, n_symbols, n)
+        word_ids[b, :n] = np.repeat(np.arange(n), rng.randint(1, 5, n))[:n]
+        mel[b, :m] = rng.randn(m, 80) * 1.5 - 5.0
+        prior[b, :m, :n] = beta_binomial_prior(n, m)
+        uv[b, :m] = rng.rand(m) < 0.3
+        f0[b, :m] = np.where(uv[b, :m] > 0, 0.0, rng.randn(m))
+        pitch[b, :m] = rng.randn(m)
+        energy[b, :m] = rng.randn(m)
+    return [rng.randint(0, TRAIN_SPEAKERS, B), texts, tl, word_ids, mel, ml, prior,
+            np.zeros((B, L), np.float32), f0, uv, pitch, energy]
+
+
+def forward_losses(model, cfg, batch, step: int, n_words: int, rng):
+    from e2e_tts_tpu_torch.models.acoustic_loss import fastspeech2_loss
+
+    out = model(batch.speakers, batch.texts, batch.txt_lens, batch.mel, batch.mel_lens,
+                batch.attn_prior, {"f0": batch.f0, "uv": batch.uv}, batch.energy, step, rng)
+    return out, fastspeech2_loss(out, batch.mel, batch.txt_lens, batch.mel_lens, batch.word_ids,
+                                 n_words, step, cfg.train.fastspeech2_loss)
+
+
+def mas_margin(attn_soft, tl: int, ml: int, path) -> float:
+    """The closest call on a row's MAS path: the least |p[j-1] - p[j]| over the
+    backtrack's decisions (float32 scores, as the search computes them)."""
+    la = np.log(np.maximum(attn_soft[:ml, :tl].astype(np.float32), np.float32(1e-30)))
+    p = np.full(tl, -1e30, np.float32)
+    p[0] = la[0, 0]
+    rows = [p]
+    for i in range(1, ml):
+        shifted = np.concatenate([[np.float32(-1e30)], p[:-1]]).astype(np.float32)
+        p = (la[i] + np.maximum(shifted, p)).astype(np.float32)
+        rows.append(p)
+    gaps = [abs(float(rows[i - 1][j - 1]) - float(rows[i - 1][j]))
+            for i, j in enumerate(path[:ml]) if i > 0 and j > 0]
+    return min(gaps, default=float("inf"))
+
+
+def train_parity(cfg, batch_np, n_symbols: int, n_words: int) -> None:
+    """One step's forward and backward on CUDA against the same on the CPU:
+    the first rows of the batch, the same weights, dropout 0, step 30000 (hard
+    expansion, the bin term at full weight).  Loss terms and each parameter's
+    gradient within TRAIN_LOSS_RTOL / TRAIN_GRAD_RTOL; durations equal, or
+    the CPU step is rerun with the CUDA alignment where a MAS decision was a
+    tie (within MAS_TIE)."""
+    import e2e_tts_tpu_torch.nn.variance as variance
+    from e2e_tts_tpu_torch.train import AcousticBatch, build_acoustic_model
+
+    step = 30000
+    cpu = build_acoustic_model(cfg, n_symbols, TRAIN_SPEAKERS, dropout=False, device="cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    rows = [a[:PARITY_ROWS] for a in batch_np]
+    b_c, b_g = AcousticBatch.from_numpy(rows, "cpu"), AcousticBatch.from_numpy(rows, "cuda")
+    for m in (cpu, gpu):
+        m.train()
+    out_g, loss_g = forward_losses(gpu, cfg, b_g, step, n_words, torch.Generator("cuda"))
+    loss_g["total"].backward()
+    t0 = time.perf_counter()
+    out_c, loss_c = forward_losses(cpu, cfg, b_c, step, n_words, torch.Generator())
+    d_c, d_g = out_c["duration_rounded"], out_g["duration_rounded"].cpu()
+    if not torch.equal(d_c, d_g):
+        hard_g = out_g["attn_hard"].cpu()
+        for b in sorted({int(i) for i in (d_c != d_g).nonzero()[:, 0]}):
+            margin = mas_margin(out_c["attn_soft"][b].detach().numpy(), int(rows[2][b]),
+                                int(rows[5][b]), out_c["attn_hard"][b].argmax(-1).tolist())
+            log(f"train parity: row {b} durations differ; closest MAS decision on the CPU "
+                f"path {margin:.4g} (tie bar {MAS_TIE})")
+            if not margin < MAS_TIE:
+                raise AssertionError(f"train parity: durations differ off a MAS tie in row {b}")
+        real = variance.monotonic_align
+        variance.monotonic_align = lambda *a: hard_g  # the CUDA alignment into the CPU step
+        try:
+            out_c, loss_c = forward_losses(cpu, cfg, b_c, step, n_words, torch.Generator())
+        finally:
+            variance.monotonic_align = real
+    loss_c["total"].backward()
+    cpu_s = time.perf_counter() - t0
+    worst = {}
+    for k, want in loss_c.items():
+        w, g = want.item(), loss_g[k].item()
+        worst[k] = abs(g - w) / max(abs(w), 1e-12)
+        if not worst[k] < TRAIN_LOSS_RTOL:
+            raise AssertionError(f"train parity: loss {k} CUDA {g} CPU {w}")
+    grads_c = {n: p.grad for n, p in cpu.named_parameters()}
+    scale = float(torch.sqrt(sum((g * g).sum() for g in grads_c.values())))
+    grad_errs = []
+    for n, p in gpu.named_parameters():
+        gc, gg = grads_c[n], p.grad.cpu()
+        if ZERO_BY_CONSTRUCTION.search(n):  # 0 by construction: noise on both sides
+            if not (gc.norm() < 1e-5 * scale and gg.norm() < 1e-5 * scale):
+                raise AssertionError(f"train parity: {n} should have a zero gradient")
+            continue
+        grad_errs.append((float((gg - gc).norm() / gc.norm().clamp(min=1e-30)), n))
+    err, name = max(grad_errs)
+    log("train parity " + json.dumps(dict(
+        rows=PARITY_ROWS, step=step, cpu_s=round(cpu_s, 2),
+        durations_equal=bool(torch.equal(d_c, d_g)),
+        loss_rel_err={k: float(f"{v:.3g}") for k, v in worst.items()},
+        worst_grad_rel_err=float(f"{err:.3g}"), worst_grad=name, grad_tensors=len(grad_errs))))
+    if not err < TRAIN_GRAD_RTOL:
+        raise AssertionError(f"train parity: gradient of {name} rel err {err} >= {TRAIN_GRAD_RTOL}")
+
+
+@contextlib.contextmanager
+def recorded_train_inputs():
+    """Set the training kernels' launch counts to 0 and keep a copy of the
+    first CUDA inputs each kernel gets (the training path's, for
+    ``check_training_inputs``)."""
+    import e2e_tts_tpu_torch.ops.ctc as ops_ctc
+    import e2e_tts_tpu_torch.ops.mas as ops_mas
+    from e2e_tts_tpu_torch.kernels.ctc import ctc_bwd, ctc_fwd
+    from e2e_tts_tpu_torch.kernels.mas import mas
+
+    real = {"mas": mas, "ctc_fwd": ctc_fwd, "ctc_bwd": ctc_bwd}
+    seen = {}
+
+    def hook(name):
+        def call(*args):
+            if name not in seen and args[0].is_cuda:
+                seen[name] = tuple(a.clone() for a in args)
+            return real[name](*args)
+        return call
+
+    # the callers' references, as ``recorded_inputs`` hooks the transformer's
+    ops_mas.mas, ops_ctc.ctc_fwd, ops_ctc.ctc_bwd = hook("mas"), hook("ctc_fwd"), hook("ctc_bwd")
+    for fn in real.values():
+        fn.launches = 0
+    try:
+        yield seen
+    finally:
+        ops_mas.mas, ops_ctc.ctc_fwd, ops_ctc.ctc_bwd = real["mas"], real["ctc_fwd"], real["ctc_bwd"]
+
+
+def check_training_inputs(seen) -> dict:
+    """Each training kernel against its plain version on the inputs the
+    training run gave it first: the largest error of each."""
+    if sorted(seen) != ["ctc_bwd", "ctc_fwd", "mas"]:
+        raise AssertionError(f"the training run gave the kernels inputs for {sorted(seen)} only")
+    la, tl, ml = seen["mas"]
+    errs = {"mas": check_mas(la, tl, ml, "the training run's inputs")}
+    lp, kl, ql = seen["ctc_fwd"]
+    errs["ctc_fwd"], _ = check_ctc(lp, kl, ql, "the training run's forward inputs")
+    g, lp, kl, ql, alpha, total = seen["ctc_bwd"]
+    _, errs["ctc_bwd"] = check_ctc(lp, kl, ql, "the training run's backward inputs", g,
+                                   (alpha, total))
+    log(f"mas on the training run's inputs {tuple(la.shape)}: bit-equal to the plain version")
+    return errs
+
+
+def train_steps(cfg, batch_np, n_symbols: int, n_words: int):
+    """5 timed train steps at step 0 and 5 at step 30000 on the full batch with
+    dropout on (launch counts from 0), the eval step twice, and one step under
+    the profiler.  Returns (launches, errors on the run's own inputs)."""
+    from e2e_tts_tpu_torch.kernels.ctc import ctc_bwd, ctc_fwd
+    from e2e_tts_tpu_torch.kernels.mas import mas
+    from e2e_tts_tpu_torch.train import (AcousticBatch, acoustic_optimizer, build_acoustic_model,
+                                         init_train_state, make_eval_step, make_train_step)
+
+    model = build_acoustic_model(cfg, n_symbols, TRAIN_SPEAKERS)
+    opt = acoustic_optimizer(cfg.train.fastspeech2_optimizer, cfg.models.fastspeech2.encoder_hidden)
+    state = init_train_state(model, opt, seed=0)
+    train_step = make_train_step(model, cfg, opt, n_words)
+    batch = AcousticBatch.from_numpy(batch_np, "cuda")
+    frames = int(batch_np[5].sum())
+    train_step(state, batch)  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    with recorded_train_inputs() as seen:
+        for start in (0, 30000):
+            state.step = start
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_STEPS):
+                metrics.append(train_step(state, batch)[1])
+            torch.cuda.synchronize()
+            sec = (time.perf_counter() - t0) / TRAIN_STEPS
+            last = {k: round(float(v), 5) for k, v in metrics[-1].items()}
+            log("train steps " + json.dumps(dict(
+                start_step=start, batch=list(batch.mel.shape[:2]) + [TRAIN_L], steps=TRAIN_STEPS,
+                step_ms=round(1e3 * sec, 3), utterances_per_s=round(TRAIN_B / sec, 2),
+                mel_frames_per_s=round(frames / sec, 1), last_metrics=last)))
+    launches = {"mas": mas.launches, "ctc_fwd": ctc_fwd.launches, "ctc_bwd": ctc_bwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train: launches {launches} in {2 * TRAIN_STEPS} steps; peak device memory "
+        f"{peak / 2**30:.2f} GiB ({peak} bytes)")
+    if any(n != 2 * TRAIN_STEPS for n in launches.values()):
+        raise AssertionError(f"each train step should launch each training kernel once: {launches}")
+    bad = [k for m in metrics for k, v in m.items() if not torch.isfinite(v)]
+    if bad:
+        raise AssertionError(f"train: non-finite metrics {sorted(set(bad))}")
+    errs = check_training_inputs(seen)
+
+    eval_step = make_eval_step(model, cfg, n_words)
+    first, again = eval_step(state, batch), eval_step(state, batch)
+    if any(not torch.equal(first[k], again[k]) for k in first):
+        raise AssertionError("make_eval_step gave other metrics the second time")
+    log("eval step twice, equal: " + json.dumps({k: round(float(v), 5) for k, v in first.items()}))
+
+    busy = device_busy(lambda: train_step(state, batch))
+    if busy is not None:
+        kernels, host = busy.pop("kernels"), busy.pop("host")
+        ours = [k for k in kernels if re.search(r"mas_kernel|ctc_", k[0])]
+        log("train profile " + json.dumps(dict(
+            **busy, kernel_launches=sum(k[2] for k in kernels),
+            port_kernels=[dict(name=k[0][:60], ms=k[1], n=k[2]) for k in ours],
+            top=[dict(name=k[0][:90], ms=k[1], n=k[2]) for k in kernels[:12]],
+            host_top=[dict(name=k[0][:40], ms=k[1], n=k[2]) for k in host[:8]])))
+    return launches, errs
+
+
+def training():
+    """Phase 12: parity, then the timed steps."""
+    from e2e_tts_tpu_torch.config import default_config
+    from e2e_tts_tpu_torch.text.symbols import symbols
+
+    cfg = default_config()
+    n_words = max(cfg.models.fastspeech2.max_seq_len, 256)  # as the JAX training CLI sizes it
+    t0 = time.perf_counter()
+    batch_np = train_batch(len(symbols))
+    log(f"train batch: {TRAIN_B} rows at (L, T) = ({TRAIN_L}, {TRAIN_T}), text lengths "
+        f"{int(batch_np[2].min())}-{int(batch_np[2].max())}, mel lengths "
+        f"{int(batch_np[5].min())}-{int(batch_np[5].max())}, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    train_parity(cfg, batch_np, len(symbols), n_words)
+    return train_steps(cfg, batch_np, len(symbols), n_words)
+
+
 def device_busy(fn):
     """``fn()`` under ``torch.profiler``: wall ms, device busy ms and share, and
     the kernels' device times by name; None when the profiler shows no device
@@ -790,6 +1214,7 @@ def main() -> int:
     environment()
     build()
     attn = check_attention()
+    train_kernels = check_training_kernels()
     path_parity()
     eng, launches, serve_err, serve_rows = serve()
     make_audible(eng)
@@ -798,6 +1223,9 @@ def main() -> int:
     audio_ops()
     path_errs = [serve_err, istft_serve(serve_rows), streaming(eng, cpu), queue(eng),
                  synthesizer_and_denoiser(eng, cpu)]
+    t0 = time.perf_counter()
+    train_launches, train_errs = training()
+    log(f"training phase: {time.perf_counter() - t0:.1f} s")
     set_estimator(eng, state)
     profile(eng, REQUESTS[-1])
     main_row = attn[2]  # the decoder's largest bucket
@@ -811,6 +1239,21 @@ def main() -> int:
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
         library_ms=main_row["library_ms"],
     )]
+    train_row = train_kernels[0]  # the training bucket of the phase 12 batch
+    for name, replaces, library_ms in (
+            ("mas", "e2e_tts_tpu/ops/mas.py:21", None),
+            ("ctc_fwd", "e2e_tts_tpu/ops/ctc.py:30", train_row["ctc_library_fwd_ms"]),
+            # F.ctc_loss forward and backward: no PyTorch call runs the backward alone
+            ("ctc_bwd", "e2e_tts_tpu/ops/ctc.py:30", train_row["ctc_library_ms"])):
+        errs = [train_errs[name]] + [r[{"mas": "mas_err", "ctc_fwd": "ctc_loss_err",
+                                        "ctc_bwd": "ctc_grad_err"}[name]] for r in train_kernels]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"e2e_tts_tpu_torch/kernels/csrc/{'mas' if name == 'mas' else 'ctc'}.cu",
+            replaces=replaces, launches=train_launches[name], max_abs_err=max(errs),
+            ms=train_row[f"{name}_ms"], plain_ms=train_row[f"{name}_plain_ms"],
+            bound_ms=train_row[f"{name}_bound_ms"], bound_by=train_row[f"{name}_bound_by"],
+            library_ms=library_ms))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,3 +1,4 @@
+from .features import beta_binomial_prior
 from .filters import hann_window, mel_filterbank
 from .mel import (
     MelParams,

@@ -11,22 +11,19 @@ Layouts:
   what ``conv_transpose1d`` does by definition.
 
 Every array must land on a parameter or buffer of the same shape, and every
-parameter and buffer must receive one; anything else raises.  The one
-exception is the acoustic model's aligner, which only training uses: its
-arrays are set aside by name (``ACOUSTIC_TRAINING_ONLY``).
+parameter and buffer must receive one (the acoustic model's aligner
+included); anything else raises.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterable, Tuple
+from typing import Dict
 
 import numpy as np
 import torch
 
 from .nn.common import fuse_weight_norm
-
-ACOUSTIC_TRAINING_ONLY = ("variance_adaptor.aligner.",)
 
 _RENAMES = (
     (r"/layer_(\d+)/", r"/layers.\1/"),
@@ -96,17 +93,14 @@ def convert(variables: dict) -> Dict[str, np.ndarray]:
     return out
 
 
-def load_into(module: torch.nn.Module, variables: dict,
-              set_aside: Iterable[str] = ()) -> Tuple[int, int]:
-    """Copy JAX ``variables`` into ``module`` in place.  Returns (arrays
-    placed, arrays set aside).  Raises on a leftover array, a shape or dtype
-    mismatch, or a parameter/buffer that received nothing."""
+def load_into(module: torch.nn.Module, variables: dict) -> int:
+    """Copy JAX ``variables`` into ``module`` in place.  Returns the number of
+    arrays placed.  Raises on a leftover array, a shape or dtype mismatch, or
+    a parameter/buffer that received nothing."""
     arrays = convert(variables)
-    set_aside = tuple(set_aside)
-    aside = [n for n in arrays if n.startswith(set_aside)] if set_aside else []
     state = module.state_dict()
-    targets = {n for n in state if not n.endswith("num_batches_tracked")}
-    leftover = sorted(set(arrays) - set(aside) - targets)
+    targets = set(state)
+    leftover = sorted(set(arrays) - targets)
     missing = sorted(targets - set(arrays))
     if leftover or missing:
         raise ValueError(f"weights do not match the module: leftover {leftover}, "
@@ -120,4 +114,4 @@ def load_into(module: torch.nn.Module, variables: dict,
             if src.dtype != dst.dtype:
                 raise ValueError(f"{name}: array {src.dtype} vs module {dst.dtype}")
             dst.copy_(src)
-    return len(targets), len(aside)
+    return len(targets)

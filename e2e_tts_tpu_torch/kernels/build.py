@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``_build/<name>-<hash>.so`` (``.gitignore`` lists ``_build/``), keyed by a hash
-of the source and the flags, and is loaded with ``ctypes``; what the compiler
-printed (``ptxas -v``: registers, spills) is kept beside it as ``.log``.
+of the source, the ``.cuh`` headers beside it and the flags, and is loaded
+with ``ctypes``; what the compiler printed (``ptxas -v``: registers,
+spills) is kept beside it as ``.log``.
 Nothing here runs at import: the CPU tests import every module on a machine
 without ``nvcc``.
 """
@@ -39,9 +40,12 @@ def _nvcc() -> str:
 
 
 def _output(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
+    """The library's path, keyed by the source, the headers beside it and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [f"{name}.cu"] + sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def compiler_log(name: str) -> str:

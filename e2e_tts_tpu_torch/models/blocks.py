@@ -2,8 +2,10 @@
 ``e2e_tts_tpu/models/blocks.py``).  The port has the transformer family; the
 other four families are queued in ROADMAP.md (A10).
 
-    encoder(token_ids, mask) -> (x, raw_embeddings)
-    decoder(x, mask) -> (x, mask)
+    encoder(token_ids, mask, rng=None) -> (x, raw_embeddings)
+    decoder(x, mask, rng=None) -> (x, mask)
+
+``rng`` is the dropout generator (None: deterministic).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ def build_encoder(cfg: FastSpeech2Config, n_symbols: int, use_flash: bool = Fals
         d_inner=b.conv_filter_size,
         kernel_sizes=tuple(b.conv_kernel_size),
         use_flash=use_flash,
+        dropout=b.encoder_dropout,
         generator=generator,
         device=device,
     )
@@ -58,6 +61,7 @@ def build_decoder(cfg: FastSpeech2Config, use_flash: bool = False, *,
         d_inner=b.conv_filter_size,
         kernel_sizes=tuple(b.conv_kernel_size),
         use_flash=use_flash,
+        dropout=b.decoder_dropout,
         generator=generator,
         device=device,
     )

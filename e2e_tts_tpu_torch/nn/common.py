@@ -17,6 +17,25 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def grad_scale(x: torch.Tensor, alpha: float) -> torch.Tensor:
+    """Identity in value; the gradient reaches ``x`` scaled by ``alpha``."""
+    return x.detach() * (1.0 - alpha) + alpha * x
+
+
+def dropout(x: torch.Tensor, rate: float, rng: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's Dropout: each element kept where a uniform draw from ``rng`` (a
+    generator on ``x``'s device) falls below 1 - rate, and scaled by
+    1 / (1 - rate).  The identity when ``rng`` is None (deterministic) or the
+    rate is 0."""
+    if rng is None or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=rng, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
 def sinusoid_table(n_position: int, d_hid: int) -> np.ndarray:
     """Interleaved sin/cos positional table (sin on even dims, cos on odd)."""
     pos = np.arange(n_position)[:, None].astype(np.float64)
@@ -125,3 +144,36 @@ class LayerNorm(nn.LayerNorm):
 
     def __init__(self, d: int, eps: float, device=None):
         super().__init__(d, eps=eps, device=device)
+
+
+class BatchNorm(nn.Module):
+    """flax's BatchNorm over (B, C, T), channels on axis 1.  With ``train``
+    it normalises by the batch's mean and biased variance, the latter as
+    max(0, E[x^2] - E[x]^2), and moves the running statistics by
+    ``ra = 0.99 ra + 0.01 stat`` (torch's BatchNorm1d uses momentum 0.1 and
+    the unbiased variance); without, it uses the running statistics.  The
+    flag is an argument, as flax's ``use_running_average``, so that serving
+    never touches the statistics whatever the module's mode."""
+
+    MOMENTUM = 0.99
+
+    def __init__(self, d: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(d, device=device))
+        self.bias = nn.Parameter(torch.zeros(d, device=device))
+        self.register_buffer("running_mean", torch.zeros(d, device=device))
+        self.register_buffer("running_var", torch.ones(d, device=device))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            mean = x.mean(dim=(0, 2))
+            var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[None, :, None]) * mul[None, :, None] + self.bias[None, :, None]

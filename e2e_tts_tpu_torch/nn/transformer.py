@@ -4,29 +4,33 @@ decoder (port of ``e2e_tts_tpu/nn/transformer.py``).
 Attention over T >= 256 with ``use_flash`` goes through the hand-written
 kernel (``kernels/flash_attention.py``) with heads folded into the batch;
 otherwise it is plain PyTorch with the pair mask at -1e9 and the softmax in
-float32.  Masks are True = valid and multiply.
+float32.  The kernel is forward only: asking for it while autograd records
+raises, as the JAX package's does, and training runs the plain branch.
+Dropout (after ``fc`` and after ``w_2``) draws from the generator passed as
+``rng``; ``rng=None`` is deterministic.  Masks are True = valid and multiply.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..kernels import flash_attention
-from .common import Conv1d, Embedding, LayerNorm, Linear, sinusoid_table
+from .common import Conv1d, Embedding, LayerNorm, Linear, dropout, sinusoid_table
 
 NEG_INF = -1e9
 FLASH_MIN_LEN = 256
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, d_model: int, n_head: int, use_flash: bool = False, *,
-                 generator: torch.Generator, device=None):
+    def __init__(self, d_model: int, n_head: int, use_flash: bool = False, dropout: float = 0.1,
+                 *, generator: torch.Generator, device=None):
         super().__init__()
         self.n_head = n_head
+        self.dropout = dropout
         self.d_k = d_model // n_head
         self.use_flash = use_flash
         kw = dict(generator=generator, device=device)
@@ -36,13 +40,17 @@ class MultiHeadAttention(nn.Module):
         self.fc = Linear(n_head * self.d_k, d_model, **kw)
         self.layer_norm = LayerNorm(d_model, 1e-5, device=device)
 
-    def forward(self, x, pair_mask, kv_lens=None):
+    def forward(self, x, pair_mask, kv_lens=None, rng: Optional[torch.Generator] = None):
         B, T, _ = x.shape
         H, dk = self.n_head, self.d_k
         q = self.w_q(x).view(B, T, H, dk)
         k = self.w_k(x).view(B, T, H, dk)
         v = self.w_v(x).view(B, T, H, dk)
         if self.use_flash and kv_lens is not None and T >= FLASH_MIN_LEN:
+            if torch.is_grad_enabled() and q.requires_grad:
+                raise RuntimeError("the flash attention kernel is forward only: train with "
+                                   "use_flash=False")
+
             def fold(t):
                 return t.permute(0, 2, 1, 3).reshape(B * H, T, dk).contiguous()
 
@@ -54,37 +62,38 @@ class MultiHeadAttention(nn.Module):
             scores = torch.where(pair_mask[:, None], scores, torch.full_like(scores, NEG_INF))
             attn = torch.softmax(scores.float(), dim=-1).to(x.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, T, H * dk)
-        return self.layer_norm(self.fc(out) + x)
+        return self.layer_norm(dropout(self.fc(out), self.dropout, rng) + x)
 
 
 class ConvFFN(nn.Module):
-    def __init__(self, d_model: int, d_inner: int, kernel_sizes: Tuple[int, int] = (9, 1), *,
-                 generator: torch.Generator, device=None):
+    def __init__(self, d_model: int, d_inner: int, kernel_sizes: Tuple[int, int] = (9, 1),
+                 dropout: float = 0.1, *, generator: torch.Generator, device=None):
         super().__init__()
         kw = dict(generator=generator, device=device)
+        self.dropout = dropout
         self.w_1 = Conv1d(d_model, d_inner, kernel_sizes[0], **kw)
         self.w_2 = Conv1d(d_inner, d_model, kernel_sizes[1], **kw)
         self.layer_norm = LayerNorm(d_model, 1e-5, device=device)
 
-    def forward(self, x):
+    def forward(self, x, rng: Optional[torch.Generator] = None):
         h = self.w_2.conv_ncw(torch.relu(self.w_1.conv_ncw(x.transpose(1, 2))))
-        return self.layer_norm(h.transpose(1, 2) + x)
+        return self.layer_norm(dropout(h.transpose(1, 2), self.dropout, rng) + x)
 
 
 class FFTBlock(nn.Module):
     def __init__(self, d_model: int, n_head: int, d_inner: int,
-                 kernel_sizes: Tuple[int, int] = (9, 1), use_flash: bool = False, *,
-                 generator: torch.Generator, device=None):
+                 kernel_sizes: Tuple[int, int] = (9, 1), use_flash: bool = False,
+                 dropout: float = 0.1, *, generator: torch.Generator, device=None):
         super().__init__()
         kw = dict(generator=generator, device=device)
-        self.slf_attn = MultiHeadAttention(d_model, n_head, use_flash, **kw)
-        self.pos_ffn = ConvFFN(d_model, d_inner, kernel_sizes, **kw)
+        self.slf_attn = MultiHeadAttention(d_model, n_head, use_flash, dropout, **kw)
+        self.pos_ffn = ConvFFN(d_model, d_inner, kernel_sizes, dropout, **kw)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, rng: Optional[torch.Generator] = None):
         pair_mask = mask[:, :, None] & mask[:, None, :]
         kv_lens = mask.sum(dim=-1)
-        x = self.slf_attn(x, pair_mask, kv_lens) * mask[..., None]
-        return self.pos_ffn(x) * mask[..., None]
+        x = self.slf_attn(x, pair_mask, kv_lens, rng) * mask[..., None]
+        return self.pos_ffn(x, rng) * mask[..., None]
 
 
 class _Positions:
@@ -108,21 +117,22 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, n_symbols: int, n_layers: int, d_model: int, n_head: int,
                  d_inner: int, kernel_sizes: Tuple[int, int] = (9, 1),
-                 use_flash: bool = False, *, generator: torch.Generator, device=None):
+                 use_flash: bool = False, dropout: float = 0.1, *, generator: torch.Generator,
+                 device=None):
         super().__init__()
         kw = dict(generator=generator, device=device)
         self.src_word_emb = Embedding(n_symbols + 1, d_model, std=1.0, zero_row0=True, **kw)
         self.layers = nn.ModuleList(
-            FFTBlock(d_model, n_head, d_inner, kernel_sizes, use_flash, **kw)
+            FFTBlock(d_model, n_head, d_inner, kernel_sizes, use_flash, dropout, **kw)
             for _ in range(n_layers)
         )
         self._pos = _Positions(d_model)
 
-    def forward(self, token_ids, mask):
+    def forward(self, token_ids, mask, rng: Optional[torch.Generator] = None):
         emb = self.src_word_emb(token_ids)
         x = (emb + self._pos(token_ids.shape[1], emb.device)[None]) * mask[..., None]
         for layer in self.layers:
-            x = layer(x, mask)
+            x = layer(x, mask, rng)
         return x, emb
 
 
@@ -130,18 +140,18 @@ class TransformerDecoder(nn.Module):
     """Mel decoder over frame-rate sequences.  Returns (x, mask)."""
 
     def __init__(self, n_layers: int, d_model: int, n_head: int, d_inner: int,
-                 kernel_sizes: Tuple[int, int] = (9, 1), use_flash: bool = False, *,
-                 generator: torch.Generator, device=None):
+                 kernel_sizes: Tuple[int, int] = (9, 1), use_flash: bool = False,
+                 dropout: float = 0.1, *, generator: torch.Generator, device=None):
         super().__init__()
         kw = dict(generator=generator, device=device)
         self.layers = nn.ModuleList(
-            FFTBlock(d_model, n_head, d_inner, kernel_sizes, use_flash, **kw)
+            FFTBlock(d_model, n_head, d_inner, kernel_sizes, use_flash, dropout, **kw)
             for _ in range(n_layers)
         )
         self._pos = _Positions(d_model)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, rng: Optional[torch.Generator] = None):
         x = (x + self._pos(x.shape[1], x.device)[None]) * mask[..., None]
         for layer in self.layers:
-            x = layer(x, mask)
+            x = layer(x, mask, rng)
         return x, mask

@@ -1,21 +1,34 @@
-"""Variance adaptor, inference half (port of ``e2e_tts_tpu/nn/variance.py``):
-corpus statistics, the duration predictor (espnet style, the unsupervised
-tree the shipped voices use) and the pitch/energy predictors with their
-embeddings.  The aligner and the training branch wait for the training slice
-(ROADMAP.md, A7).
+"""Variance adaptor (port of ``e2e_tts_tpu/nn/variance.py``): corpus
+statistics, the duration predictor (espnet style, the unsupervised tree the
+shipped voices use), the pitch/energy predictors with their embeddings, the
+Gaussian-distance aligner, and the adaptor's training branch (aligner -> MAS
+-> durations; targets pooled per phoneme; soft expansion through the soft
+attention before ``binarization_start_steps``, hard after).
+
+Dropout draws from the generator passed as ``rng`` (None: deterministic).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..ops import bucketize, f0_to_coarse
-from .common import Conv1d, Embedding, LayerNorm, Linear, t2t_sinusoid
+from ..ops import (
+    average_by_segments,
+    bucketize,
+    durations_to_mel2ph,
+    f0_to_coarse,
+    monotonic_align,
+    regulate_length,
+    sequence_mask,
+)
+from .common import Conv1d, Embedding, LayerNorm, Linear, dropout, grad_scale, t2t_sinusoid
+
+NEG_INF = -1e9
 
 
 @dataclass(frozen=True)
@@ -66,13 +79,14 @@ class FeatureStats:
 
 
 class ConvPredictorStack(nn.Module):
-    """N x (conv -> relu -> LayerNorm [-> mask]) -> linear head."""
+    """N x (conv -> relu -> LayerNorm -> dropout [-> mask]) -> linear head."""
 
     def __init__(self, d_in: int, n_chans: int, n_layers: int, kernel_size: int, odim: int,
-                 head_bias_init: float = 0.0, ln_eps: float = 1e-12, *,
+                 head_bias_init: float = 0.0, ln_eps: float = 1e-12, dropout: float = 0.5, *,
                  generator: torch.Generator, device=None):
         super().__init__()
         kw = dict(generator=generator, device=device)
+        self.dropout = dropout
         self.convs = nn.ModuleList(
             Conv1d(d_in if i == 0 else n_chans, n_chans, kernel_size, **kw)
             for i in range(n_layers)
@@ -81,9 +95,9 @@ class ConvPredictorStack(nn.Module):
                                    for _ in range(n_layers))
         self.linear = Linear(n_chans, odim, bias_init=head_bias_init, **kw)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, rng: Optional[torch.Generator] = None):
         for conv, norm in zip(self.convs, self.norms):
-            x = norm(torch.relu(conv(x)))
+            x = dropout(norm(torch.relu(conv(x))), self.dropout, rng)
             if mask is not None:
                 x = x * mask[..., None]
         return self.linear(x)
@@ -93,15 +107,15 @@ class DurationPredictor(nn.Module):
     """Log-domain duration predictor, espnet style: n_chans = n_mels, masks
     between layers, LayerNorm eps 1e-12, head bias log(5 + 1)."""
 
-    def __init__(self, d_in: int, n_chans: int, n_layers: int = 2, kernel_size: int = 3, *,
-                 generator: torch.Generator, device=None):
+    def __init__(self, d_in: int, n_chans: int, n_layers: int = 2, kernel_size: int = 3,
+                 dropout: float = 0.5, *, generator: torch.Generator, device=None):
         super().__init__()
         self.stack = ConvPredictorStack(d_in, n_chans, n_layers, kernel_size, 1,
-                                        head_bias_init=1.7918, ln_eps=1e-12,
+                                        head_bias_init=1.7918, ln_eps=1e-12, dropout=dropout,
                                         generator=generator, device=device)
 
-    def forward(self, x, mask):
-        return (self.stack(x, mask) * mask[..., None])[..., 0]
+    def forward(self, x, mask, rng: Optional[torch.Generator] = None):
+        return (self.stack(x, mask, rng) * mask[..., None])[..., 0]
 
 
 class VariancePredictor(nn.Module):
@@ -110,19 +124,56 @@ class VariancePredictor(nn.Module):
     zero; padded rows carry the speaker embedding by now, so they count
     through the padding exactly as the JAX package and the reference do."""
 
-    def __init__(self, d_in: int, n_chans: int, n_layers: int, kernel_size: int, odim: int, *,
-                 generator: torch.Generator, device=None):
+    def __init__(self, d_in: int, n_chans: int, n_layers: int, kernel_size: int, odim: int,
+                 dropout: float = 0.5, *, generator: torch.Generator, device=None):
         super().__init__()
         self.pos_alpha = nn.Parameter(torch.ones(1, device=device))
         self.stack = ConvPredictorStack(d_in, n_chans, n_layers, kernel_size, odim,
-                                        generator=generator, device=device)
+                                        dropout=dropout, generator=generator, device=device)
 
-    def forward(self, x):
+    def forward(self, x, rng: Optional[torch.Generator] = None):
         T = x.shape[1]
         pos = torch.from_numpy(t2t_sinusoid(T + 1, x.shape[-1])).to(x.device)
         nonpad = (x.abs().sum(-1) > 0).to(torch.int64)
         positions = torch.cumsum(nonpad, dim=1) * nonpad
-        return self.stack(x + self.pos_alpha * pos[positions])
+        return self.stack(x + self.pos_alpha * pos[positions], None, rng)
+
+
+class AlignmentEncoder(nn.Module):
+    """Gaussian-distance text/mel aligner.  ``forward`` returns (attn_soft,
+    attn_logprob), both (B, T_mel, T_text): the scaled negative squared
+    distance between query (mel) and key (text) projections, plus the log of
+    the prior where one is given; the soft attention is its softmax over the
+    valid text positions."""
+
+    def __init__(self, d_text: int, n_mels: int, n_att_channels: int, temperature: float, *,
+                 generator: torch.Generator, device=None):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.temperature = temperature
+        self.key_spk_proj = Linear(d_text, d_text, bias=False, **kw)
+        self.query_spk_proj = Linear(d_text, n_mels, bias=False, **kw)
+        self.key_conv1 = Conv1d(d_text, 2 * d_text, 3, **kw)
+        self.key_conv2 = Conv1d(2 * d_text, n_att_channels, 1, **kw)
+        self.query_conv1 = Conv1d(n_mels, 2 * n_mels, 3, **kw)
+        self.query_conv2 = Conv1d(2 * n_mels, n_mels, 1, **kw)
+        self.query_conv3 = Conv1d(n_mels, n_att_channels, 1, **kw)
+
+    def forward(self, mel, txt_emb, txt_mask, attn_prior=None, spk_emb=None):
+        if spk_emb is not None:
+            txt_emb = txt_emb + self.key_spk_proj(spk_emb)[:, None, :]
+            mel = mel + self.query_spk_proj(spk_emb)[:, None, :]
+        k = self.key_conv2(torch.relu(self.key_conv1(txt_emb)))
+        q = self.query_conv3(torch.relu(self.query_conv2(torch.relu(self.query_conv1(mel)))))
+        q2 = torch.sum(q * q, dim=-1)[:, :, None]
+        k2 = torch.sum(k * k, dim=-1)[:, None, :]
+        qk = torch.einsum("bqc,bkc->bqk", q, k)
+        attn = -self.temperature * (q2 + k2 - 2.0 * qk)
+        if attn_prior is not None:
+            attn = torch.log_softmax(attn, dim=-1) + torch.log(attn_prior + 1e-8)
+        attn_logprob = attn
+        attn = torch.where(txt_mask[:, None, :], attn, torch.full_like(attn, NEG_INF))
+        return torch.softmax(attn, dim=-1), attn_logprob
 
 
 def _bins(lo: float, hi: float, n: int, log: bool) -> np.ndarray:
@@ -132,9 +183,9 @@ def _bins(lo: float, hi: float, n: int, log: bool) -> np.ndarray:
 
 
 class VarianceAdaptor(nn.Module):
-    """Duration + phoneme- or frame-level pitch/energy, inference only."""
+    """Duration + phoneme- or frame-level pitch/energy, and the aligner."""
 
-    def __init__(self, n_mel_channels: int, hidden_dim: int, stats: FeatureStats, vp, ve, *,
+    def __init__(self, n_mel_channels: int, hidden_dim: int, stats: FeatureStats, vp, ve, dm, *,
                  generator: torch.Generator, device=None):
         super().__init__()
         if vp.ffn_padding != "SAME":
@@ -146,15 +197,19 @@ class VarianceAdaptor(nn.Module):
         self.pitch_feature = ve.pitch_feature
         self.energy_feature = ve.energy_feature
         self.pitch_log = ve.pitch_quantization == "log"
+        self.binarization_start_steps = dm.binarization_start_steps
         self.duration_predictor = DurationPredictor(
-            hidden_dim, n_mel_channels, vp.dur_predictor_layers, vp.dur_predictor_kernel, **kw)
+            hidden_dim, n_mel_channels, vp.dur_predictor_layers, vp.dur_predictor_kernel,
+            vp.dropout, **kw)
+        self.aligner = AlignmentEncoder(hidden_dim, n_mel_channels, n_mel_channels,
+                                        dm.aligner_temperature, **kw)
         self.pitch_predictor = VariancePredictor(
             hidden_dim, vp.filter_size, vp.pit_predictor_layers, vp.pit_predictor_kernel,
-            2 if ve.use_uv else 1, **kw)
+            2 if ve.use_uv else 1, vp.dropout, **kw)
         self.pitch_embedding = Embedding(ve.n_bins if ve.use_uv else ve.f0_bins, hidden_dim, **kw)
         self.energy_predictor = VariancePredictor(
             hidden_dim, vp.filter_size, vp.ener_predictor_layers, vp.ener_predictor_kernel, 1,
-            **kw)
+            vp.dropout, **kw)
         self.energy_embedding = Embedding(ve.n_bins, hidden_dim, **kw)
         self.register_buffer("pitch_bins", torch.from_numpy(_bins(
             stats.pitch_min, stats.pitch_max, ve.n_bins - 1, self.pitch_log)).to(device),
@@ -163,25 +218,102 @@ class VarianceAdaptor(nn.Module):
             stats.energy_min, stats.energy_max, ve.n_bins - 1,
             ve.energy_quantization == "log")).to(device), persistent=False)
 
-    def _predictor_input(self, x):
-        # the JAX package's grad_scale: identity in value, but computed as
-        # x * (1 - a) + a * x, which can move the last bit of x
-        a = self.predictor_grad
-        return x * (1.0 - a) + a * x
-
-    def pitch_embed(self, x, control: float):
-        pred = self.pitch_predictor(self._predictor_input(x))
+    def pitch_embed(self, x, control: float, target=None, rng: Optional[torch.Generator] = None):
+        """(prediction, embedding): the embedding of ``target`` ({"f0", "uv"}
+        with use_uv, else the pitch) where given, else of the prediction
+        scaled by ``control``."""
+        pred = self.pitch_predictor(grad_scale(x, self.predictor_grad), rng)
         if self.use_uv:
-            pred = pred * control
-            f0s, uvs = pred[..., 0], pred[..., 1] > 0
+            if target is not None:
+                f0s, uvs = target["f0"], target["uv"] > 0
+            else:
+                pred = pred * control
+                f0s, uvs = pred[..., 0], pred[..., 1] > 0
             if self.pitch_log:
                 f0 = 2.0 ** f0s
             else:
                 f0 = f0s * self.stats.f0_std + self.stats.f0_mean
             f0 = torch.where(uvs, torch.zeros_like(f0), f0)
-            return self.pitch_embedding(f0_to_coarse(f0).long())
-        return self.pitch_embedding(bucketize(pred[..., 0] * control, self.pitch_bins).long())
+            return pred, self.pitch_embedding(f0_to_coarse(f0).long())
+        pred = pred[..., 0]
+        pitch = target if target is not None else pred * control
+        return pred, self.pitch_embedding(bucketize(pitch, self.pitch_bins).long())
 
-    def energy_embed(self, x, control: float):
-        pred = self.energy_predictor(self._predictor_input(x))[..., 0]
-        return self.energy_embedding(bucketize(pred * control, self.energy_bins).long())
+    def energy_embed(self, x, control: float, target=None, rng: Optional[torch.Generator] = None):
+        pred = self.energy_predictor(grad_scale(x, self.predictor_grad), rng)[..., 0]
+        energy = target if target is not None else pred * control
+        return pred, self.energy_embedding(bucketize(energy, self.energy_bins).long())
+
+    def add_prosody(self, x, level: str, targets=(None, None), p_control: float = 1.0,
+                  e_control: float = 1.0, rng: Optional[torch.Generator] = None):
+        """The pitch and energy embeddings at ``level`` added to ``x``: both
+        predictors read the same base features.  Returns (x, pitch
+        prediction, energy prediction), None for a feature at another level."""
+        x_base, pitch_pred, energy_pred = x, None, None
+        if self.pitch_feature == level:
+            pitch_pred, emb = self.pitch_embed(x_base, p_control, targets[0], rng)
+            x = x + emb
+        if self.energy_feature == level:
+            energy_pred, emb = self.energy_embed(x_base, e_control, targets[1], rng)
+            x = x + emb
+        return x, pitch_pred, energy_pred
+
+    def forward(self, x, txt_emb, txt_lens, txt_mask, spk_emb, mel, mel_lens, attn_prior,
+                pitch_target, energy_target, step: int,
+                rng: Optional[torch.Generator] = None) -> Dict:
+        """The JAX adaptor's ``__call__`` with a mel target (the train and eval
+        passes): the aligner and MAS give the durations, the targets are
+        pooled per phoneme where the features are, and the phonemes expand
+        through the soft attention before ``binarization_start_steps``, by
+        the hard durations after."""
+        x = x + spk_emb[:, None, :]
+        log_duration_prediction = self.duration_predictor(
+            grad_scale(x, self.predictor_grad), txt_mask, rng)
+        attn_soft, attn_logprob = self.aligner(mel, txt_emb, txt_mask, attn_prior, spk_emb)
+        attn_hard = monotonic_align(attn_soft, txt_lens, mel_lens)
+        duration_rounded = attn_hard.sum(dim=1)
+        dur_int = duration_rounded.to(torch.int32)
+        T = mel.shape[1]
+
+        pitch_prediction = energy_prediction = None
+        if "phoneme_level" in (self.pitch_feature, self.energy_feature):
+            mel2ph = durations_to_mel2ph(dur_int, T)
+
+            def pool(f):
+                return average_by_segments(f, mel2ph, mel_lens, x.shape[1])
+
+            if isinstance(pitch_target, dict):
+                # a phoneme is unvoiced only when all its frames are
+                pitch_target = {"f0": pool(pitch_target["f0"]),
+                                "uv": (pool(pitch_target["uv"]) >= 1.0 - 1e-6).float()}
+            else:
+                pitch_target = pool(pitch_target)
+            energy_target = pool(energy_target)
+            x, pitch_prediction, energy_prediction = self.add_prosody(
+                x, "phoneme_level", (pitch_target, energy_target), rng=rng)
+
+        if step < self.binarization_start_steps:  # soft expansion while the aligner warms up
+            x = torch.einsum("btl,blh->bth", attn_soft, x)
+        else:
+            x, _, _ = regulate_length(x, dur_int, T)
+        mel_mask = sequence_mask(mel_lens, T)
+
+        if "frame_level" in (self.pitch_feature, self.energy_feature):
+            x, p, e = self.add_prosody(x, "frame_level", (pitch_target, energy_target), rng=rng)
+            pitch_prediction = p if p is not None else pitch_prediction
+            energy_prediction = e if e is not None else energy_prediction
+
+        return {
+            "x": x,
+            "log_duration_prediction": log_duration_prediction,
+            "duration_rounded": duration_rounded,
+            "pitch_prediction": pitch_prediction,
+            "energy_prediction": energy_prediction,
+            "mel_lens": mel_lens,
+            "mel_mask": mel_mask,
+            "attn_soft": attn_soft,
+            "attn_hard": attn_hard,
+            "attn_logprob": attn_logprob,
+            "pitch_target": pitch_target,
+            "energy_target": energy_target,
+        }

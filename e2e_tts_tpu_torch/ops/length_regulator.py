@@ -5,6 +5,8 @@
     x_mel[t]  = x_phon[mel2ph[t]]
 
 Frames past the total duration point at the last phoneme and are zeroed.
+The training pools (frames to phonemes, phonemes to words) are one-hot
+products, as in JAX.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def durations_to_mel2ph(durations: torch.Tensor, max_mel_len: int) -> torch.Tensor:
@@ -36,3 +39,22 @@ def regulate_length(
     t = torch.arange(max_mel_len, dtype=torch.int32, device=x.device)
     valid = t[None, :] < mel_lens[:, None]
     return x_mel * valid[..., None].to(x_mel.dtype), mel_lens, mel2ph
+
+
+def average_by_segments(frame_feature: torch.Tensor, mel2ph: torch.Tensor,
+                        mel_lens: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """Frame level -> phoneme level, the mean over each phoneme's frames: (B, T)
+    features and segment ids -> (B, n_segments), a one-hot product."""
+    t = torch.arange(mel2ph.shape[-1], device=mel2ph.device)
+    valid = (t[None, :] < mel_lens[:, None]).to(frame_feature.dtype)
+    onehot = F.one_hot(mel2ph.long(), n_segments).to(frame_feature.dtype) * valid[..., None]
+    sums = torch.einsum("btl,bt->bl", onehot, frame_feature)
+    return sums / torch.clamp(onehot.sum(dim=1), min=1.0)
+
+
+def sum_by_words(phoneme_values: torch.Tensor, word_ids: torch.Tensor,
+                 n_words: int) -> torch.Tensor:
+    """Phoneme level -> word level by summing: (B, L) values and word ids ->
+    (B, n_words), a one-hot product."""
+    onehot = F.one_hot(word_ids.long(), n_words).to(phoneme_values.dtype)
+    return torch.einsum("blw,bl->bw", onehot, phoneme_values)

@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from ..config import Config, default_config
-from ..convert import ACOUSTIC_TRAINING_ONLY, load_into
+from ..convert import load_into
+from ..device import resolve_device
 from ..models.acoustic import FastSpeech2
 from ..models.vocoder import build_generator, vocode
 from ..nn.variance import FeatureStats
@@ -43,16 +44,6 @@ FRAMES_PER_PHONEME_EST = 8
 # batches dispatched ahead of the host drain; the JAX engine's depth, kept
 # because the bucket estimator is updated at drain time
 PIPELINE_DEPTH = 4
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means CUDA, and raises when there is none: serving never
-    drops to the CPU unasked."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def _split_long_sequence(seq: np.ndarray) -> List[np.ndarray]:
@@ -391,12 +382,21 @@ class SynthesisEngine:
         audio = self._vocode(torch.from_numpy(pad[None]).to(self.device))
         return audio[0, : T * self.hop_length].float().cpu().numpy()
 
+    @torch.no_grad()
     def mel_content_features(self, mel: np.ndarray, speaker: int = 0) -> np.ndarray:
-        """The aligner's phoneme posteriorgram of a mel: needs
-        ``FastSpeech2.content_features``, which comes with the aligner."""
-        raise NotImplementedError(
-            "mel_content_features needs FastSpeech2.content_features, ported with "
-            "acoustic training (ROADMAP.md, A7)")
+        """Phoneme posteriorgram of a log-mel (T, n_mels) -> (T, n_symbols)
+        float32 from the trained aligner (``FastSpeech2.content_features``).
+        T is padded with zero frames to the serving mel bucket, as the JAX
+        engine pads it (the aligner's 3-tap convolutions read the padding at
+        the last frame), and the result trimmed."""
+        T = int(mel.shape[0])
+        if T == 0:
+            return np.zeros((0, self.acoustic.n_symbols), np.float32)
+        pad = np.zeros((_mel_bucket(T), mel.shape[1]), np.float32)
+        pad[:T] = mel
+        spk = torch.full((1,), speaker, dtype=torch.int64, device=self.device)
+        ppg = self.acoustic.content_features(torch.from_numpy(pad[None]).to(self.device), spk)
+        return ppg[0, :T].float().cpu().numpy()
 
     def make_denoiser(self, mode: str = "zeros"):
         """Bias denoiser for this engine's vocoder (``models/denoiser.py``);
@@ -459,7 +459,7 @@ class SynthesisEngine:
             b.config.models.fastspeech2, len(get_frontend(b.language).symbols),
             max(len(b.speakers), 1), b.config.audio.mel.channels, b.stats,
             use_flash=True, device=device)
-        load_into(acoustic, b.acoustic_variables, set_aside=ACOUSTIC_TRAINING_ONLY)
+        load_into(acoustic, b.acoustic_variables)
         vocoder = build_generator(b.config, b.vocoder_kind, device=device)
         load_into(vocoder, b.vocoder_variables)
         kw.setdefault("foreign_dict", b.foreign_dict)

@@ -1,0 +1,169 @@
+"""Acoustic-model train and eval steps (port of
+``e2e_tts_tpu/train/acoustic_step.py``), eager PyTorch on one device.
+
+``build_acoustic_model(config, n_symbols, n_speakers)`` makes the model as
+the JAX package trains it, on CUDA unless the caller passes a device;
+``make_train_step(model, config, optimizer, n_words)`` returns
+``train_step(state, batch) -> (state, metrics)``: forward in training mode
+(dropout from the state's generator, BatchNorm on batch statistics), the
+FastSpeech2 losses, backward (MAS and the forward-sum CTC through their
+kernels on CUDA), one ``NoamAdam`` update.  With ``grad_acc_step`` N > 1 the
+batch splits into N microbatches whose gradients are summed and scaled by
+1/N before the one update, as the JAX step does.  ``make_eval_step`` is the
+deterministic pass: eval mode, no gradient.
+
+The state holds what JAX threads through its step: the step count, the model
+(parameters and BatchNorm statistics, updated in place), the optimizer state
+and the dropout generator (a ``torch.Generator`` on the model's device, in
+place of JAX's rng key).  Metrics are device scalars (no host sync).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from ..models.acoustic import FastSpeech2
+from ..models.acoustic_loss import fastspeech2_loss
+from ..nn.variance import FeatureStats
+from .optim import AdamState, NoamAdam
+
+
+class AcousticBatch(NamedTuple):
+    """One padded training batch, laid out as the JAX package's ``_collate``."""
+
+    speakers: torch.Tensor         # (B,)
+    texts: torch.Tensor            # (B, L)
+    txt_lens: torch.Tensor         # (B,)
+    word_ids: torch.Tensor         # (B, L)
+    mel: torch.Tensor              # (B, T, n_mels)
+    mel_lens: torch.Tensor         # (B,)
+    attn_prior: torch.Tensor       # (B, T, L)
+    duration_target: torch.Tensor  # (B, L), zeros: the aligner gives durations
+    f0: torch.Tensor               # (B, T)
+    uv: torch.Tensor               # (B, T)
+    pitch: torch.Tensor            # (B, T)
+    energy: torch.Tensor           # (B, T)
+
+    @classmethod
+    def from_numpy(cls, arrays, device) -> "AcousticBatch":
+        """From numpy arrays (an ``AcousticBatch`` of them, or any sequence of
+        the 12 in order): integers as int64, the rest float32, on ``device``."""
+        def move(a):
+            t = torch.as_tensor(a)
+            t = t.long() if not t.is_floating_point() else t.float()
+            return t.to(device)
+
+        return cls(*(move(a) for a in arrays))
+
+
+def build_acoustic_model(config, n_symbols: int, n_speakers: int,
+                         stats: Optional[FeatureStats] = None, *, dropout: bool = True,
+                         device=None, seed: int = 0) -> FastSpeech2:
+    """The FastSpeech2 of ``config`` (a full ``Config``) as the JAX package
+    trains it: attention through plain matmul/softmax (``use_flash=False``),
+    weights from ``torch.Generator().manual_seed(seed)``, on ``device`` (CUDA
+    when None, which raises without a card).  ``dropout=False`` zeroes every
+    dropout rate, the postnet's hard-coded 0.5 included."""
+    fs2 = config.models.fastspeech2
+    if not dropout:
+        blk = fs2.building_block.transformer.replace(encoder_dropout=0.0, decoder_dropout=0.0)
+        fs2 = fs2.replace(
+            building_block=fs2.building_block.replace(transformer=blk),
+            variance=fs2.variance.replace(
+                variance_predictor=fs2.variance.variance_predictor.replace(dropout=0.0)))
+    model = FastSpeech2(fs2, n_symbols, n_speakers, config.audio.mel.channels,
+                        stats if stats is not None else FeatureStats(), use_flash=False,
+                        device=device, generator=torch.Generator().manual_seed(seed))
+    if not dropout:
+        model.postnet.dropout = 0.0
+    return model
+
+
+@dataclass
+class AcousticTrainState:
+    step: int
+    model: FastSpeech2
+    opt_state: AdamState
+    rng: torch.Generator
+
+
+def init_train_state(model: FastSpeech2, optimizer: NoamAdam, seed: int = 0) -> AcousticTrainState:
+    """Step 0, fresh moments, and a dropout generator on the model's device."""
+    device = next(model.parameters()).device
+    rng = torch.Generator(device=device).manual_seed(seed)
+    return AcousticTrainState(0, model, optimizer.init(list(model.parameters())), rng)
+
+
+def _check_supported(config) -> None:
+    if config.train.mixed_precision:
+        raise NotImplementedError(
+            "mixed_precision training is not ported yet (ROADMAP.md, Queue A, A14)")
+    if config.models.fastspeech2.remat_blocks:
+        raise NotImplementedError(
+            "remat_blocks is not ported yet (ROADMAP.md, Queue A, A15)")
+
+
+def _losses(model, config, batch: AcousticBatch, step: int, n_words: int, rng=None):
+    ve = config.models.fastspeech2.variance.variance_embedding
+    pitch = {"f0": batch.f0, "uv": batch.uv} if ve.use_uv else batch.pitch
+    out = model(batch.speakers, batch.texts, batch.txt_lens, batch.mel, batch.mel_lens,
+                batch.attn_prior, pitch, batch.energy, step, rng)
+    return fastspeech2_loss(out, batch.mel, batch.txt_lens, batch.mel_lens, batch.word_ids,
+                            n_words, step, config.train.fastspeech2_loss, use_uv=ve.use_uv)
+
+
+def make_train_step(model: FastSpeech2, config, optimizer: NoamAdam, n_words: int):
+    """Returns ``train_step(state, batch) -> (state, metrics)``; the state is
+    updated in place and returned.  Metrics: every loss term, ``total`` and
+    ``grad_norm`` (before clipping)."""
+    _check_supported(config)
+    grad_accum = max(int(config.train.grad_acc_step), 1)
+    params = list(model.parameters())
+
+    def train_step(state: AcousticTrainState, batch: AcousticBatch):
+        model.train()
+        for p in params:
+            p.grad = None
+        B = batch.speakers.shape[0]
+        if B % grad_accum:
+            raise ValueError(f"batch size {B} not divisible by grad_acc_step {grad_accum}")
+        micro = B // grad_accum
+        sums: Dict[str, torch.Tensor] = {}
+        for i in range(grad_accum):
+            mb = AcousticBatch(*(t[i * micro:(i + 1) * micro] for t in batch))
+            losses = _losses(model, config, mb, state.step, n_words, state.rng)
+            losses["total"].backward()  # gradients add up in p.grad
+            for k, v in losses.items():
+                v = v.detach()
+                sums[k] = v if k not in sums else sums[k] + v
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        if grad_accum > 1:
+            grads = [g * (1.0 / grad_accum) for g in grads]
+            sums = {k: v * (1.0 / grad_accum) for k, v in sums.items()}
+        sums["grad_norm"] = optimizer.apply(params, grads, state.opt_state)
+        for p in params:
+            p.grad = None
+        state.step += 1
+        return state, sums
+
+    return train_step
+
+
+def make_eval_step(model: FastSpeech2, config, n_words: int):
+    """Returns ``eval_step(state, batch) -> metrics``: eval mode (no dropout,
+    BatchNorm on its running statistics), no gradient, no optimizer."""
+    _check_supported(config)
+
+    @torch.no_grad()
+    def eval_step(state: AcousticTrainState, batch: AcousticBatch):
+        was_training = model.training
+        model.eval()
+        try:
+            return _losses(model, config, batch, state.step, n_words)
+        finally:
+            model.train(was_training)
+
+    return eval_step

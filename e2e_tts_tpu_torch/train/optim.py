@@ -1,0 +1,100 @@
+"""The acoustic model's optimizer (port of ``e2e_tts_tpu/train/optim.py``):
+Adam with a Noam warm-up/decay scaled by encoder_hidden^-0.5, annealed by
+``anneal_rate`` past each milestone, after global-norm gradient clipping.
+
+It is the JAX package's optax chain written out on torch tensors:
+``clip_by_global_norm`` (scaled by max_norm / norm where the global norm is
+not below max_norm), ``scale_by_adam`` (bias-corrected, eps outside the
+square root), ``add_decayed_weights`` when weight_decay is set,
+``scale_by_schedule`` (the schedule read at the update count, from 0) and
+``scale(-1)``.  The moments are float32 tensors beside each parameter; the
+parameters are updated in place, by multi-tensor (``_foreach``) ops.  The
+order of the float operations differs from optax's in the last bit (a
+product by max_norm / norm, fused adds).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, List, Sequence
+
+import torch
+
+
+def noam_schedule(encoder_hidden: int, warmup_steps: int, anneal_steps: Sequence[int] = (),
+                  anneal_rate: float = 0.3) -> Callable[[int], float]:
+    """lr(step) = hidden^-0.5 * min(s^-0.5, s * warmup^-1.5), s = max(step, 1),
+    times ``anneal_rate`` for each milestone that s is past."""
+    init_lr = encoder_hidden ** -0.5
+
+    def schedule(step: int) -> float:
+        s = float(max(int(step), 1))
+        lr = init_lr * min(s ** -0.5, s * warmup_steps ** -1.5)
+        for m in anneal_steps:
+            if s > m:
+                lr *= anneal_rate
+        return lr
+
+    return schedule
+
+
+@dataclass
+class AdamState:
+    """Updates applied so far, and the first and second moments."""
+
+    count: int
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+
+
+class NoamAdam:
+    """Clip -> Adam -> (weight decay) -> schedule -> descend, as optax chains
+    them.  ``init(params)`` makes the state; ``apply(params, grads, state)``
+    updates the parameters in place and returns the global norm of ``grads``
+    (before clipping) as a device scalar, with no host sync."""
+
+    def __init__(self, schedule: Callable[[int], float], b1: float, b2: float, eps: float,
+                 max_norm: float, weight_decay: float = 0.0):
+        self.schedule = schedule
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.max_norm = max_norm
+        self.weight_decay = weight_decay
+
+    def init(self, params: Sequence[torch.Tensor]) -> AdamState:
+        return AdamState(0, [torch.zeros_like(p) for p in params],
+                         [torch.zeros_like(p) for p in params])
+
+    @torch.no_grad()
+    def apply(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+              state: AdamState) -> torch.Tensor:
+        """One update for all tensors at once (``torch._foreach_*``: a few
+        launches, not a dozen a tensor)."""
+        params, grads = list(params), list(grads)
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        # optax scales by max_norm / norm only where the norm reaches max_norm
+        clip = torch.where(norm < self.max_norm, torch.ones_like(norm), self.max_norm / norm)
+        g = torch._foreach_mul(grads, clip)
+        b1, b2 = self.b1, self.b2
+        count = state.count + 1
+        torch._foreach_mul_(state.mu, b1)
+        torch._foreach_add_(state.mu, g, alpha=1.0 - b1)
+        torch._foreach_mul_(state.nu, b2)
+        torch._foreach_addcmul_(state.nu, g, g, value=1.0 - b2)
+        denom = torch._foreach_div(state.nu, 1.0 - b2 ** count)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        u = torch._foreach_div(state.mu, 1.0 - b1 ** count)
+        torch._foreach_div_(u, denom)
+        if self.weight_decay:
+            torch._foreach_add_(u, params, alpha=self.weight_decay)
+        torch._foreach_mul_(u, self.schedule(state.count))
+        torch._foreach_sub_(params, u)
+        state.count = count
+        return norm
+
+
+def acoustic_optimizer(cfg, encoder_hidden: int) -> NoamAdam:
+    """Noam-scheduled Adam for FastSpeech2 from an ``OptimizerConfig``."""
+    sched = noam_schedule(encoder_hidden, cfg.warm_up_step, cfg.anneal_steps, cfg.anneal_rate)
+    return NoamAdam(sched, cfg.betas[0], cfg.betas[1], cfg.eps, cfg.grad_clip_thresh,
+                    cfg.weight_decay)

@@ -31,7 +31,7 @@ from e2e_tts_tpu.models.acoustic import init_acoustic_variables
 from e2e_tts_tpu.nn import FeatureStats as JaxFeatureStats
 from e2e_tts_tpu.text import text_to_sequence as jax_text_to_sequence
 from e2e_tts_tpu_torch.config import default_config, load_config
-from e2e_tts_tpu_torch.convert import ACOUSTIC_TRAINING_ONLY, load_into
+from e2e_tts_tpu_torch.convert import load_into
 from e2e_tts_tpu_torch.models.acoustic import FastSpeech2
 from e2e_tts_tpu_torch.nn import transformer as port_transformer
 from e2e_tts_tpu_torch.nn.variance import FeatureStats
@@ -109,8 +109,10 @@ _BUILT = {}
 def _model(name):
     if name not in _BUILT:
         jax_model, variables, port, inputs, min_T = MODELS[name]()
-        placed, aside = load_into(port, _numpy_tree(variables), set_aside=ACOUSTIC_TRAINING_ONLY)
-        assert placed > 0 and aside > 0  # the aligner is set aside, the rest placed
+        # every array placed, the aligner's included (load_into raises on a leftover)
+        placed = load_into(port, _numpy_tree(variables))
+        assert placed == len(port.state_dict())
+        assert any(n.startswith("variance_adaptor.aligner.") for n in port.state_dict())
         stage1 = jax.jit(functools.partial(jax_model.apply, method=JaxFastSpeech2.synthesize_stage1))
         stage2 = jax.jit(functools.partial(jax_model.apply, method=JaxFastSpeech2.synthesize_stage2),
                          static_argnums=(3,))

@@ -1,6 +1,6 @@
 """The port on the card: its CUDA kernels against their plain PyTorch
-versions, its audio ops on CUDA against the CPU, and the batching queue on a
-small CUDA engine.
+versions, its audio ops on CUDA against the CPU, the batching queue on a
+small CUDA engine, and one train step that launches the training kernels.
 
 Every test here is marked ``cuda`` and skips without a GPU.  The file imports
 no JAX, so it also runs where JAX is not installed:
@@ -10,7 +10,9 @@ no JAX, so it also runs where JAX is not installed:
 Bars: attention max error < 2e-5 on valid query rows, every row finite
 (kv_len = 0 included); log-mel MAE < 1e-4 and ``inverse_stft`` max < 1e-4
 against the CPU, and ``inverse_stft`` bit-equal run to run; the queue's
-results equal to a solo ``synthesize`` within 1 LSB on average.
+results equal to a solo ``synthesize`` within 1 LSB on average; MAS
+bit-equal to its plain version; the CTC loss within 1e-5 relative and its
+gradient within 1e-5 x max |grad| of the plain versions.
 """
 
 import numpy as np
@@ -175,3 +177,127 @@ def test_batching_server_on_cuda(cuda):
     for out, ref in zip(outs, solo):
         assert len(out) == len(ref) > 0
         assert np.abs(out.astype(np.int32) - ref.astype(np.int32)).mean() < 1.0
+
+
+# --- the training kernels: MAS and the forward-sum CTC ----------------------------------
+
+MAS_CASES = [  # (seed, B, T, L, text_lens, mel_lens)
+    (40, 4, 768, 128, (128, 64, 100, 77), (768, 384, 500, 600)),
+    (41, 2, 1024, 256, (256, 200), (1024, 777)),
+    (42, 6, 45, 13, (1, 0, 13, 9, 13, 5), (45, 30, 45, 4, 0, 1)),  # edges; not multiples of 32
+    (43, 3, 100, 1100, (1100, 1025, 3), (100, 100, 100)),  # more columns than threads
+]
+
+
+def _mas_inputs(seed, B, T, L, device):
+    rng = np.random.RandomState(seed)
+    attn = rng.dirichlet(np.ones(L), size=(B, T)).astype(np.float32)
+    return torch.log(torch.clamp(torch.from_numpy(attn), min=1e-30)).to(device)
+
+
+@pytest.mark.parametrize("seed,B,T,L,tl,ml", MAS_CASES, ids=[f"{c[1]}x{c[2]}x{c[3]}" for c in MAS_CASES])
+def test_mas_kernel_bit_equal_to_plain(cuda, seed, B, T, L, tl, ml):
+    from e2e_tts_tpu_torch.kernels.mas import mas, mas_plain
+
+    la = _mas_inputs(seed, B, T, L, cuda)
+    tl_t = torch.tensor(tl, dtype=torch.int32, device=cuda)
+    ml_t = torch.tensor(ml, dtype=torch.int32, device=cuda)
+    before = mas.launches
+    out = mas(la, tl_t, ml_t)
+    torch.cuda.synchronize()
+    assert mas.launches == before + 1
+    assert torch.equal(out, mas_plain(la, tl_t, ml_t))
+    for b, (n, m) in enumerate(zip(tl, ml)):
+        if n == 0 or m == 0:
+            assert not out[b].any()
+
+
+def test_mas_kernel_ties(cuda):
+    """Flat rows (every step a tie, resolved to the left) and -1e30 in column 0."""
+    from e2e_tts_tpu_torch.kernels.mas import mas, mas_plain
+
+    la = torch.full((3, 50, 20), -3.0, device=cuda)
+    la[2, :, 0] = -1e30
+    tl = torch.tensor([20, 7, 20], dtype=torch.int32, device=cuda)
+    ml = torch.tensor([50, 33, 50], dtype=torch.int32, device=cuda)
+    assert torch.equal(mas(la, tl, ml), mas_plain(la, tl, ml))
+
+
+CTC_CASES = [  # (seed, B, T, K, text_lens, mel_lens)
+    (50, 4, 768, 128, (128, 64, 100, 77), (768, 384, 500, 600)),
+    (51, 2, 1024, 256, (256, 200), (1024, 777)),
+    (52, 6, 45, 13, (1, 0, 13, 9, 13, 5), (45, 30, 45, 4, 0, 1)),  # k 0 and 1, q < k, q 0
+]
+
+
+def _ctc_inputs(seed, B, T, K, tl, device):
+    from e2e_tts_tpu_torch.ops.ctc import lattice_log_probs
+
+    rng = np.random.RandomState(seed)
+    logits = torch.from_numpy((rng.randn(B, T, K) * 2).astype(np.float32))
+    return lattice_log_probs(logits, torch.tensor(tl)).to(device).contiguous()
+
+
+@pytest.mark.parametrize("seed,B,T,K,tl,ml", CTC_CASES, ids=[f"{c[1]}x{c[2]}x{c[3]}" for c in CTC_CASES])
+def test_ctc_kernels_match_plain(cuda, seed, B, T, K, tl, ml):
+    """Loss relative error < 1e-5, gradient max |diff| < 1e-5 x max |grad|
+    (exp/log and sums in another order than the plain version's)."""
+    from e2e_tts_tpu_torch.kernels.ctc import ctc_bwd, ctc_bwd_plain, ctc_fwd, ctc_fwd_plain
+
+    lp = _ctc_inputs(seed, B, T, K, tl, cuda)
+    kl = torch.tensor(tl, dtype=torch.int32, device=cuda)
+    ql = torch.tensor(ml, dtype=torch.int32, device=cuda)
+    g = torch.full((B,), 1.0 / B, device=cuda)
+    n_fwd, n_bwd = ctc_fwd.launches, ctc_bwd.launches
+    loss, alpha, total = ctc_fwd(lp, kl, ql)
+    grad = ctc_bwd(g, lp, kl, ql, alpha, total)
+    torch.cuda.synchronize()
+    assert (ctc_fwd.launches, ctc_bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    loss_p, alpha_p, total_p = ctc_fwd_plain(lp, kl, ql)
+    grad_p = ctc_bwd_plain(g, lp, kl, ql, alpha_p, total_p)
+    assert torch.isfinite(loss).all() and torch.isfinite(grad).all()
+    assert ((loss - loss_p).abs() <= 1e-5 * loss_p.abs()).all(), (loss, loss_p)
+    assert (grad - grad_p).abs().max().item() < 1e-5 * grad_p.abs().max().item()
+    for b, (n, m) in enumerate(zip(tl, ml)):
+        if n == 0 or m < n and m > 0:  # zeroed rows: no loss, no gradient
+            assert loss[b].item() == 0 and not grad[b].any()
+
+
+def test_train_step_launches_the_training_kernels(cuda):
+    """One train step of a small model on the card launches MAS once, the CTC
+    forward once and the CTC backward once; its losses are finite."""
+    from e2e_tts_tpu_torch.audio import beta_binomial_prior
+    from e2e_tts_tpu_torch.config import default_config
+    from e2e_tts_tpu_torch.kernels.ctc import ctc_bwd, ctc_fwd
+    from e2e_tts_tpu_torch.kernels.mas import mas
+    from e2e_tts_tpu_torch.models.acoustic import FastSpeech2
+    from e2e_tts_tpu_torch.nn.variance import FeatureStats
+    from e2e_tts_tpu_torch.train import (AcousticBatch, acoustic_optimizer, init_train_state,
+                                         make_train_step)
+
+    cfg = default_config()
+    fs2 = cfg.models.fastspeech2
+    fs2 = fs2.replace(encoder_layers=1, decoder_layers=1, encoder_hidden=64, decoder_hidden=64,
+                      building_block=fs2.building_block.replace(
+                          transformer=fs2.building_block.transformer.replace(conv_filter_size=64)),
+                      postnet=fs2.postnet.replace(embedding_dim=64, conv_layers=2))
+    cfg = cfg.replace(models=cfg.models.replace(fastspeech2=fs2))
+    model = FastSpeech2(fs2, 40, 2, 80, FeatureStats(), device=cuda)
+    opt = acoustic_optimizer(cfg.train.fastspeech2_optimizer, 64)
+    state = init_train_state(model, opt)
+    rng = np.random.RandomState(60)
+    B, L, T = 3, 20, 90
+    tl, ml = np.array([20, 13, 7]), np.array([90, 60, 31])
+    arrays = [np.zeros(B, np.int64), np.zeros((B, L), np.int64), tl, np.zeros((B, L), np.int64),
+              np.zeros((B, T, 80), np.float32), ml, np.zeros((B, T, L), np.float32),
+              np.zeros((B, L), np.float32)] + [np.zeros((B, T), np.float32) for _ in range(4)]
+    for b in range(B):
+        arrays[1][b, :tl[b]] = rng.randint(1, 40, tl[b])
+        arrays[4][b, :ml[b]] = rng.randn(ml[b], 80) - 4.0
+        arrays[6][b, :ml[b], :tl[b]] = beta_binomial_prior(tl[b], ml[b])
+    batch = AcousticBatch.from_numpy(arrays, cuda)
+    before = (mas.launches, ctc_fwd.launches, ctc_bwd.launches)
+    _, metrics = make_train_step(model, cfg, opt, 32)(state, batch)
+    torch.cuda.synchronize()
+    assert (mas.launches, ctc_fwd.launches, ctc_bwd.launches) == tuple(n + 1 for n in before)
+    assert all(torch.isfinite(v).item() for v in metrics.values())

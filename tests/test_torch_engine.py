@@ -15,6 +15,7 @@ package's, on the CPU.
   writes (``vie_tiny``'s acoustic weights, a narrow iSTFTNet initialised by
   JAX): the same length and mean |diff| < 1 LSB; ``vocode_mel`` max |diff|
   < 1e-4 on both vocoder kinds.
+- ``mel_content_features`` (the aligner's posteriorgram) max |diff| < 1e-5.
 - ``device=None`` without CUDA raises; the port imports no JAX.
 """
 
@@ -232,10 +233,21 @@ def test_engine_events_reach_on_event():
     assert seen and seen == list(peng.events)[n:]
 
 
+def test_mel_content_features_matches_jax():
+    """The aligner's posteriorgram of a mel through the engine: the mel padded
+    to the serving bucket as the JAX engine pads it, trimmed to T frames."""
+    jeng, peng = _engines()
+    rng = np.random.RandomState(4)
+    for T, spk in ((1, 0), (57, 0), (200, 1)):
+        mel = (rng.randn(T, 80) * 0.8 - 4.0).astype(np.float32)
+        got, want = peng.mel_content_features(mel, spk), jeng.mel_content_features(mel, spk)
+        assert got.dtype == np.float32 and got.shape == want.shape == (T, peng.acoustic.n_symbols)
+        assert np.abs(got - want).max() < 1e-5
+    assert peng.mel_content_features(np.zeros((0, 80), np.float32)).shape == (0, peng.acoustic.n_symbols)
+
+
 def test_engine_options_the_port_does_not_take():
     _, peng = _engines()
-    with pytest.raises(NotImplementedError, match="A7"):
-        peng.mel_content_features(np.zeros((10, 80), np.float32))
     # the TPU's folded vocoder (B2) and the mu-law transfer codec are not ported
     with pytest.raises(TypeError):
         SynthesisEngine.from_checkpoint(VIE_TINY, device="cpu", use_folded_vocoder=True)
@@ -259,7 +271,11 @@ def test_port_imports_no_jax():
                "e2e_tts_tpu_torch.audio", "e2e_tts_tpu_torch.serve.streaming",
                "e2e_tts_tpu_torch.serve.queue", "e2e_tts_tpu_torch.serve.inference",
                "e2e_tts_tpu_torch.serve.audio_post", "e2e_tts_tpu_torch.models.denoiser",
-               "e2e_tts_tpu_torch.utils", "e2e_tts_tpu_torch.serve"]
+               "e2e_tts_tpu_torch.utils", "e2e_tts_tpu_torch.serve",
+               "e2e_tts_tpu_torch.train.acoustic_step", "e2e_tts_tpu_torch.train.optim",
+               "e2e_tts_tpu_torch.ops.mas", "e2e_tts_tpu_torch.ops.ctc",
+               "e2e_tts_tpu_torch.kernels.mas", "e2e_tts_tpu_torch.kernels.ctc",
+               "e2e_tts_tpu_torch.models.acoustic_loss", "e2e_tts_tpu_torch.audio.features"]
     code = (f"import sys, {', '.join(modules)}\n"
             "from e2e_tts_tpu_torch.text.frontends import get_frontend\n"
             "[get_frontend(lang) for lang in ('vie', 'eng', 'mya')]\n"
@@ -268,7 +284,8 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                          text=True, check=True, timeout=120).stdout.split()
     assert {"e2e_tts_tpu_torch.serve.engine", "e2e_tts_tpu_torch.serve.queue",
-            "e2e_tts_tpu_torch.models.denoiser"} <= set(out)
+            "e2e_tts_tpu_torch.models.denoiser", "e2e_tts_tpu_torch.train.acoustic_step",
+            "e2e_tts_tpu_torch.kernels.ctc"} <= set(out)
     bad = [m for m in out if m in ("jax", "flax", "e2e_tts_tpu") or m.startswith(
         ("jax.", "flax.", "e2e_tts_tpu."))]
     assert not bad, bad

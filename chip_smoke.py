@@ -46,14 +46,34 @@ Phases, in order; any failure raises and the exit code is non-zero:
    and the CTC forward and backward launched once a step each, and held to
    their plain versions on the inputs the steps gave them); ``make_eval_step``
    twice, equal; one step under ``torch.profiler``;
-13. profile: one long request under ``torch.profiler`` (device busy share,
+13. vocoder GAN training: HiFi-GAN V1 (512 channels) in its training form,
+   MPD and MSD at reference widths and the GAN optimizers, all from torch
+   seed 0, on a numpy batch of 16 x 32 frames (8192 samples) of random
+   log-mels and speech-level audio: one ``make_vocoder_train_step`` step on
+   CUDA against the CPU (2 rows: metrics, and every gradient from Adam's
+   first moments); 5 timed steps (step ms, audio seconds trained a second,
+   peak memory, finite metrics); one step under ``torch.profiler``; then 2
+   steps of the iSTFTNet variant;
+14. joint e2e fine-tune: phase 12's model and batch with HiFi-GAN V1, MPD/MSD
+   and aligned audio: one ``make_e2e_train_step`` step on CUDA against the
+   CPU (4 rows, dropout 0, step 30000, the crop starts handed in: metrics,
+   and every gradient from Adam's first moments); 5 timed steps (MAS and the
+   CTC forward and backward once a step each, held to their plain versions
+   on the steps' own inputs); one step under ``torch.profiler``;
+15. bundle: ``SynthesisEngine.from_checkpoint`` of ``assets/bundles/vie_tiny``
+   on CUDA serves the requests, each against the same bundle on the CPU; the
+   training generator warm-started from the bundle's vocoder tree gives the
+   serving vocoder's waveform;
+16. profile: one long request under ``torch.profiler`` (device busy share,
    the kernels that take most device time, the port's own kernels' time);
-14. a JSON line of every kernel, then the JSON result as the last line.
+17. a JSON line of every kernel, then the JSON result as the last line.
 
-Each path that launches kernels (phases 5, 8, 9, 10, 11 and 12) is driven
+Each path that launches kernels (phases 5, 8, 9, 10, 11, 12, 14 and 15) is driven
 with the launch counts set to 0 just before it and read just after, and each
 kernel is held against its plain version on the first inputs that path gave
-it (``recorded_inputs``, ``recorded_train_inputs``).  From phase 6 on, the random
+it (``recorded_inputs``, ``recorded_train_inputs``).  The kernels' JSON line
+counts the serving run's launches of flash attention and phases 12 and 14's
+of the training kernels.  From phase 6 on, the random
 vocoders run with their last convolution scaled so that the waveform is at a
 speaking level (``make_audible``): the random weights alone give well under
 1 LSB.
@@ -1137,15 +1157,7 @@ def train_steps(cfg, batch_np, n_symbols: int, n_words: int):
         raise AssertionError("make_eval_step gave other metrics the second time")
     log("eval step twice, equal: " + json.dumps({k: round(float(v), 5) for k, v in first.items()}))
 
-    busy = device_busy(lambda: train_step(state, batch))
-    if busy is not None:
-        kernels, host = busy.pop("kernels"), busy.pop("host")
-        ours = [k for k in kernels if re.search(r"mas_kernel|ctc_", k[0])]
-        log("train profile " + json.dumps(dict(
-            **busy, kernel_launches=sum(k[2] for k in kernels),
-            port_kernels=[dict(name=k[0][:60], ms=k[1], n=k[2]) for k in ours],
-            top=[dict(name=k[0][:90], ms=k[1], n=k[2]) for k in kernels[:12]],
-            host_top=[dict(name=k[0][:40], ms=k[1], n=k[2]) for k in host[:8]])))
+    log_profile("train", device_busy(lambda: train_step(state, batch)), r"mas_kernel|ctc_")
     return launches, errs
 
 
@@ -1166,10 +1178,376 @@ def training():
     return train_steps(cfg, batch_np, len(symbols), n_words)
 
 
+# --- 13. vocoder GAN training ------------------------------------------------------------
+
+VOC_B, VOC_FRAMES = 16, 32  # cmd_vocoder: batch_size // 2 rows of segment_length // 4 samples
+VOC_STEPS = 5
+VOC_PARITY_ROWS = 2
+HOP = 256
+
+
+def speech(n: int, rng, rows: int = 1):
+    """(rows, n) audio at a speaking level: three sines of random phase and
+    noise, about 0.25 RMS."""
+    t = np.arange(n) / 22050.0
+    out = np.empty((rows, n), np.float32)
+    for r in range(rows):
+        out[r] = sum(0.2 * np.sin(2 * np.pi * f * t + rng.rand() * 6) for f in (140.0, 290.0, 610.0))
+        out[r] += 0.02 * rng.randn(n)
+    return out
+
+
+def vocoder_batch(seed: int = 0):
+    """(random log-mels (B, 32, 80), aligned audio (B, 32 * 256)) from numpy."""
+    rng = np.random.RandomState(seed)
+    mel = (rng.randn(VOC_B, VOC_FRAMES, 80) * 1.5 - 5.0).astype(np.float32)
+    return mel, speech(VOC_FRAMES * HOP, rng, VOC_B)
+
+
+def gan_modules(cfg, kind: str = "hifigan", device=None):
+    """The training-form generator and MPD/MSD at reference widths, all from
+    torch seed 0, on ``device`` (CUDA when None)."""
+    from e2e_tts_tpu_torch.models.vocoder import build_generator
+    from e2e_tts_tpu_torch.nn.discriminators import build_discriminators
+
+    return (build_generator(cfg, kind, train=True, device=device, seed=0),
+            *build_discriminators(device, seed=0))
+
+
+def adam_names(*modules):
+    """The parameter names in the order an optimizer state holds them (the
+    discriminators' MPD then MSD, prefixed by their index)."""
+    if len(modules) == 1:
+        return [n for n, _ in modules[0].named_parameters()]
+    return [f"{i}.{n}" for i, m in enumerate(modules) for n, _ in m.named_parameters()]
+
+
+def metrics_parity(what: str, got: dict, want: dict) -> dict:
+    """Each metric on CUDA (``got``) against the CPU within TRAIN_LOSS_RTOL."""
+    errs = {}
+    for k, w in want.items():
+        w, g = w.item(), got[k].item()
+        errs[k] = abs(g - w) / max(abs(w), 1e-12)
+        if not errs[k] < TRAIN_LOSS_RTOL:
+            raise AssertionError(f"{what}: metric {k} CUDA {g} CPU {w}")
+    return {k: float(f"{v:.3g}") for k, v in errs.items()}
+
+
+FLOOR_FACTOR = 4.0  # a gradient may differ by this many times the CPU's own reorder noise
+
+
+def parity_runs(run, cpu_mods, rows: int) -> dict:
+    """``run(modules, device, order) -> (state, metrics)`` from the same
+    weights on the batch's rows in ``order``: on CUDA and on the CPU, and for
+    the float32 noise of the reference itself, twice more on the CPU with its
+    sums in another order: with oneDNN off (PyTorch's own convolutions), and
+    with the rows reversed."""
+    forward, reverse = np.arange(rows), np.arange(rows)[::-1].copy()
+    gpu = [copy.deepcopy(m).to("cuda") for m in cpu_mods]
+    again, flipped = ([copy.deepcopy(m) for m in cpu_mods] for _ in range(2))
+    out = {"cuda": run(gpu, "cuda", forward)}
+    t0 = time.perf_counter()
+    out["cpu"] = run(cpu_mods, "cpu", forward)
+    out["cpu_s"] = time.perf_counter() - t0
+    out["reversed"] = run(flipped, "cpu", reverse)
+    torch.backends.mkldnn.enabled = False
+    try:
+        out["again"] = run(again, "cpu", forward)
+    finally:
+        torch.backends.mkldnn.enabled = True
+    return out
+
+
+def moments_parity(what: str, out: dict, groups) -> dict:
+    """The gradients of one step, CUDA against the CPU, read from Adam's first
+    moment after the step (mu = (1 - b1) times the clipped gradient).
+    ``groups``: (names, the optimizer state's attribute, zero pattern or
+    None).  Each tensor within TRAIN_GRAD_RTOL relative norm, or within
+    FLOOR_FACTOR times its own reorder noise (the larger difference of the CPU
+    step from its two reruns, ``parity_runs``) where that is larger.  On the
+    CPU alone that noise reaches ~1e-3 in the GAN steps: the discriminators'
+    first-layer weight gradients are sums over thousands of audio samples
+    that cancel far, and the acoustic model's gradient from the generator's
+    log-mel loss moves with the convolutions' implementation.  The log
+    reports each side's worst.  A tensor the zero pattern matches is 0 by
+    construction: below 1e-5 of the group's norm on both sides."""
+    rows, n = [], 0
+    for names, attr, zero in groups:
+        cpu, gpu, again, flipped = (getattr(out[k][0], attr).mu
+                                    for k in ("cpu", "cuda", "again", "reversed"))
+        scale = float(torch.sqrt(sum((m * m).sum() for m in cpu)))
+        for name, mc, mg, ma, mr in zip(names, cpu, gpu, again, flipped):
+            mg = mg.cpu()
+            if zero is not None and zero.search(name):
+                if not (mc.norm() < 1e-5 * scale and mg.norm() < 1e-5 * scale):
+                    raise AssertionError(f"{what}: {name} should have a zero gradient")
+                continue
+            norm = mc.norm().clamp(min=1e-30)
+            err = float((mg - mc).norm() / norm)
+            floor = max(float((ma - mc).norm() / norm), float((mr - mc).norm() / norm))
+            rows.append((err / max(TRAIN_GRAD_RTOL, FLOOR_FACTOR * floor), err, floor, name))
+            n += 1
+    worst = max(rows)
+    over = [r for r in rows if r[1] >= TRAIN_GRAD_RTOL]
+    if worst[0] >= 1.0:
+        raise AssertionError(f"{what}: gradient of {worst[3]} rel err {worst[1]} >= "
+                             f"max({TRAIN_GRAD_RTOL}, {FLOOR_FACTOR} x its reorder noise {worst[2]})")
+    top = max(rows, key=lambda r: r[1])
+    return dict(grad_tensors=n, worst_grad_rel_err=float(f"{top[1]:.3g}"), worst_grad=top[3],
+                its_reorder_noise=float(f"{top[2]:.3g}"), over_rtol=len(over),
+                worst_reorder_noise=float(f"{max(r[2] for r in rows):.3g}"))
+
+
+def vocoder_parity(cfg, batch_np) -> None:
+    """One ``make_vocoder_train_step`` step of HiFi-GAN V1 with MPD/MSD at
+    reference widths on CUDA against the same weights on the CPU, the batch's
+    first rows: the metrics, and the discriminators' and the generator's
+    gradients from Adam's first moments."""
+    from e2e_tts_tpu_torch.train import (VocoderBatch, gan_optimizer, init_vocoder_train_state,
+                                         make_vocoder_train_step)
+
+    def run(mods, device, order):
+        g_opt, d_opt = (gan_optimizer(cfg.train.hifigan_optimizer) for _ in range(2))
+        state = init_vocoder_train_state(mods[0], g_opt, d_opt, *mods[1:])
+        step = make_vocoder_train_step(mods[0], cfg, g_opt, d_opt, "hifigan", *mods[1:])
+        return step(state, VocoderBatch.from_numpy([a[order] for a in batch_np], device))
+
+    cpu = gan_modules(cfg, device="cpu")
+    out = parity_runs(run, cpu, VOC_PARITY_ROWS)
+    errs = metrics_parity("vocoder parity", out["cuda"][1], out["cpu"][1])
+    grads = moments_parity("vocoder parity", out, [
+        (adam_names(cpu[0]), "g_opt_state", None), (adam_names(*cpu[1:]), "d_opt_state", None)])
+    log("vocoder parity " + json.dumps(dict(rows=VOC_PARITY_ROWS, cpu_s=round(out["cpu_s"], 2),
+                                            metric_rel_err=errs, **grads)))
+
+
+def timed_steps(step, state, batch, n: int) -> tuple:
+    """n steps after the one before them: (seconds a step, metrics of each)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = [step(state, batch)[1] for _ in range(n)]
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n, metrics
+
+
+def check_finite(what: str, metrics) -> dict:
+    bad = sorted({k for m in metrics for k, v in m.items() if not torch.isfinite(v)})
+    if bad:
+        raise AssertionError(f"{what}: non-finite metrics {bad}")
+    return {k: round(float(v), 5) for k, v in metrics[-1].items()}
+
+
+def log_profile(what: str, busy, pattern=None) -> None:
+    """A ``device_busy`` result: busy share, the top kernels, the port's own
+    (names matching ``pattern``) and the host's top calls."""
+    if busy is None:
+        return
+    kernels, host = busy.pop("kernels"), busy.pop("host")
+    ours = [k for k in kernels if pattern and re.search(pattern, k[0])]
+    log(f"{what} profile " + json.dumps(dict(
+        **busy, kernel_launches=sum(k[2] for k in kernels),
+        port_kernels=[dict(name=k[0][:60], ms=k[1], n=k[2]) for k in ours],
+        top=[dict(name=k[0][:90], ms=k[1], n=k[2]) for k in kernels[:12]],
+        host_top=[dict(name=k[0][:40], ms=k[1], n=k[2]) for k in host[:8]])))
+
+
+def vocoder_gan() -> None:
+    """Phase 13: parity at 2 rows, then 5 timed steps at B = 16, one profiled
+    step, and 2 steps of the iSTFTNet variant."""
+    from e2e_tts_tpu_torch.config import default_config
+    from e2e_tts_tpu_torch.train import (VocoderBatch, gan_optimizer, init_vocoder_train_state,
+                                         make_vocoder_train_step)
+
+    cfg = default_config()
+    batch_np = vocoder_batch()
+    vocoder_parity(cfg, batch_np)
+    batch = VocoderBatch.from_numpy(batch_np, "cuda")
+    audio_s = VOC_B * VOC_FRAMES * HOP / cfg.audio.signal.sampling_rate
+    for kind in ("hifigan", "istft"):
+        gen, mpd, msd = gan_modules(cfg, kind)
+        g_opt, d_opt = (gan_optimizer(cfg.train.hifigan_optimizer) for _ in range(2))
+        state = init_vocoder_train_state(gen, g_opt, d_opt, mpd, msd)
+        step = make_vocoder_train_step(gen, cfg, g_opt, d_opt, kind, mpd, msd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = step(state, batch)[1]  # warm-up: cuDNN's choices, cuFFT's plans
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.reset_peak_memory_stats()
+        n = VOC_STEPS if kind == "hifigan" else 1
+        sec, metrics = timed_steps(step, state, batch, n)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"vocoder steps ({kind}) " + json.dumps(dict(
+            batch=[VOC_B, VOC_FRAMES, VOC_FRAMES * HOP], steps=n + 1, first_step_ms=round(first_ms, 3),
+            step_ms=round(1e3 * sec, 3), audio_s_per_s=round(audio_s / sec, 2),
+            peak_bytes=peak, peak_gib=round(peak / 2**30, 2),
+            last_metrics=check_finite(f"vocoder steps ({kind})", [first] + metrics))))
+        if kind == "hifigan":
+            log_profile("vocoder", device_busy(lambda: step(state, batch)))
+
+
+# --- 14. joint acoustic + vocoder fine-tune ----------------------------------------------
+
+E2E_SEG = 32  # make_e2e_train_step's segment_frames
+
+
+def e2e_audio(batch_np, seed: int = 0):
+    """(B, T * 256) audio aligned with the batch's mels: speech for each
+    row's mel_len frames, zeros after."""
+    mel_lens, T = batch_np[5], batch_np[4].shape[1]
+    rng = np.random.RandomState(seed)
+    audio = np.zeros((len(mel_lens), T * HOP), np.float32)
+    for b, m in enumerate(mel_lens):
+        audio[b, :m * HOP] = speech(m * HOP, rng)[0]
+    return audio
+
+
+def e2e_modules(cfg, n_symbols: int, device=None, dropout: bool = True):
+    """The default-width FastSpeech2 with its aligner, HiFi-GAN V1 and
+    MPD/MSD, from torch seed 0."""
+    from e2e_tts_tpu_torch.train import build_acoustic_model
+
+    model = build_acoustic_model(cfg, n_symbols, TRAIN_SPEAKERS, dropout=dropout, device=device)
+    return (model, *gan_modules(cfg, device=device))
+
+
+def e2e_step_fn(cfg, mods, n_words: int, seed: int = 0):
+    """(state, step) of ``make_e2e_train_step`` over ``mods`` with the
+    acoustic and GAN optimizers of the JAX training CLI's e2e command."""
+    from e2e_tts_tpu_torch.train import (acoustic_optimizer, gan_optimizer, init_e2e_state,
+                                         make_e2e_train_step)
+
+    am_opt = acoustic_optimizer(cfg.train.fastspeech2_optimizer, cfg.models.fastspeech2.encoder_hidden)
+    g_opt, d_opt = (gan_optimizer(cfg.train.hifigan_optimizer) for _ in range(2))
+    model, gen, mpd, msd = mods
+    state = init_e2e_state(model, gen, am_opt, g_opt, d_opt, mpd, msd, seed=seed)
+    return state, make_e2e_train_step(model, gen, cfg, am_opt, g_opt, d_opt, n_words, E2E_SEG,
+                                      mpd, msd)
+
+
+def e2e_parity(cfg, batch_np, audio, n_symbols: int, n_words: int) -> None:
+    """One e2e step on CUDA against the CPU: the batch's first rows, the same
+    weights, dropout 0, step 30000, the crop starts handed in.  The metrics,
+    and the acoustic model's, the generator's and the discriminators'
+    gradients from Adam's first moments."""
+    from e2e_tts_tpu_torch.train import E2EBatch
+
+    starts = np.random.RandomState(1).randint(0, np.maximum(batch_np[5][:PARITY_ROWS] - E2E_SEG, 0)
+                                              + 1)
+
+    def run(mods, device, order):
+        state, step = e2e_step_fn(cfg, mods, n_words)
+        state.step = 30000
+        batch = E2EBatch.from_numpy([a[order] for a in batch_np], audio[order], device)
+        return step(state, batch, torch.from_numpy(starts[order]).to(device))
+
+    cpu = e2e_modules(cfg, n_symbols, "cpu", dropout=False)
+    out = parity_runs(run, cpu, PARITY_ROWS)
+    errs = metrics_parity("e2e parity", out["cuda"][1], out["cpu"][1])
+    grads = moments_parity("e2e parity", out, [
+        (adam_names(cpu[0]), "am_opt_state", ZERO_BY_CONSTRUCTION),
+        (adam_names(cpu[1]), "g_opt_state", None), (adam_names(*cpu[2:]), "d_opt_state", None)])
+    log("e2e parity " + json.dumps(dict(rows=PARITY_ROWS, step=30000, starts=starts.tolist(),
+                                        cpu_s=round(out["cpu_s"], 2), metric_rel_err=errs,
+                                        **grads)))
+
+
+def joint_e2e():
+    """Phase 14: parity at 4 rows, then 5 timed steps at phase 12's B = 32
+    batch (launch counts from 0; MAS and the CTC forward and backward once a
+    step each, held to their plain versions on the steps' own inputs), one
+    profiled step.  Returns (launches, errors on the run's own inputs)."""
+    from e2e_tts_tpu_torch.config import default_config
+    from e2e_tts_tpu_torch.kernels.ctc import ctc_bwd, ctc_fwd
+    from e2e_tts_tpu_torch.kernels.mas import mas
+    from e2e_tts_tpu_torch.text.symbols import symbols
+    from e2e_tts_tpu_torch.train import E2EBatch
+
+    cfg = default_config()
+    n_words = max(cfg.models.fastspeech2.max_seq_len, 256)
+    batch_np = train_batch(len(symbols))
+    audio = e2e_audio(batch_np)
+    e2e_parity(cfg, batch_np, audio, len(symbols), n_words)
+    state, step = e2e_step_fn(cfg, e2e_modules(cfg, len(symbols)), n_words)
+    batch = E2EBatch.from_numpy(batch_np, audio, "cuda")
+    step(state, batch)  # warm-up, not counted
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_train_inputs() as seen:
+        sec, metrics = timed_steps(step, state, batch, TRAIN_STEPS)
+    launches = {"mas": mas.launches, "ctc_fwd": ctc_fwd.launches, "ctc_bwd": ctc_bwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    log("e2e steps " + json.dumps(dict(
+        batch=[TRAIN_B, TRAIN_T, TRAIN_L], segment_frames=E2E_SEG, steps=TRAIN_STEPS,
+        step_ms=round(1e3 * sec, 3), utterances_per_s=round(TRAIN_B / sec, 2),
+        peak_bytes=peak, peak_gib=round(peak / 2**30, 2), launches=launches,
+        last_metrics=check_finite("e2e steps", metrics))))
+    if any(n != TRAIN_STEPS for n in launches.values()):
+        raise AssertionError(f"each e2e step should launch each training kernel once: {launches}")
+    errs = check_training_inputs(seen)
+    log_profile("e2e", device_busy(lambda: step(state, batch)), r"mas_kernel|ctc_")
+    return launches, errs
+
+
+# --- 15. a trained bundle on the card ------------------------------------------------------
+
+BUNDLE = "assets/bundles/vie_tiny"
+WARM_TOL = 1e-4  # max |training form - serving vocoder| of the warm-started generator, in [-1, 1]
+
+
+def bundle() -> float:
+    """``SynthesisEngine.from_checkpoint`` of the checked-in bundle on CUDA
+    serves the requests (launch counts from 0), each within LSB_TOL of the
+    same bundle on the CPU; the training generator warm-started from the
+    bundle's vocoder tree (as the JAX CLI's ``vocoder --init-from``) gives
+    the serving vocoder's waveform.  Returns the kernel's worst error on the
+    run's own inputs."""
+    from e2e_tts_tpu_torch.convert import load_into
+    from e2e_tts_tpu_torch.kernels.flash_attention import flash_attention
+    from e2e_tts_tpu_torch.models.vocoder import build_generator
+    from e2e_tts_tpu_torch.serve.bundle import load_bundle
+    from e2e_tts_tpu_torch.serve.engine import SynthesisEngine
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), BUNDLE)
+    eng = SynthesisEngine.from_checkpoint(path, device="cuda")
+    cpu = SynthesisEngine.from_checkpoint(path, device="cpu")
+    for text in REQUESTS:  # warm-up pass, not counted
+        eng.synthesize(text)
+    with recorded_inputs() as seen:
+        for text in REQUESTS:
+            set_estimator(cpu, estimator(eng))
+            out = eng.synthesize(text)
+            lsb_diff(f"bundle {os.path.basename(BUNDLE)}: {len(text)} characters, CUDA vs CPU",
+                     out, cpu.synthesize(text))
+    launches = flash_attention.launches
+    log(f"bundle: launches {{'flash_attention': {launches}}}")
+    if launches <= 0:
+        raise AssertionError("the bundle run never launched flash_attention")
+    err = check_serving_inputs(seen, "bundle")
+
+    mels, real = [], eng.vocoder
+    eng.vocoder = lambda mel: (mels.append(mel), real(mel))[1]
+    try:
+        eng.synthesize(REQUESTS[1])
+    finally:
+        eng.vocoder = real
+    trained = build_generator(eng.config, eng.vocoder_kind, train=True, device="cuda")
+    n = load_into(trained, load_bundle(path).vocoder_variables)
+    got, want = trained(mels[0]), real(mels[0])
+    diff = float((got.detach() - want).abs().max())
+    rms = float(want.pow(2).mean().sqrt())
+    log(f"bundle warm start: {n} arrays into the training generator (v, g kept); waveform "
+        f"{tuple(got.shape)} max|diff| {diff:.3g} from the serving vocoder (bar {WARM_TOL}), "
+        f"rms {rms:.3g}")
+    if not (got.requires_grad and torch.isfinite(got).all() and diff < WARM_TOL and rms > 1e-3):
+        raise AssertionError("bundle warm start: the training generator's waveform is off")
+    return err
+
+
 def device_busy(fn):
-    """``fn()`` under ``torch.profiler``: wall ms, device busy ms and share, and
-    the kernels' device times by name; None when the profiler shows no device
-    time."""
+    """``fn()`` under ``torch.profiler``: wall ms, device busy ms (the union of
+    the kernels' intervals: kernels that overlap count once) and share, the
+    kernels' summed time, and their device times by name; None when the
+    profiler shows no device time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -1182,14 +1560,19 @@ def device_busy(fn):
     events = prof.key_averages()
     kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
     dev_ms = lambda e: getattr(e, "self_device_time_total", 0.0) / 1e3  # noqa: E731
-    busy_ms = sum(dev_ms(e) for e in kernels)
-    if busy_ms <= 0:
+    kernel_ms = sum(dev_ms(e) for e in kernels)
+    if kernel_ms <= 0:
         log("profile: the profiler shows no device time: device busy share not measured")
         return None
+    busy_ms, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                              if str(e.device_type).endswith("CUDA")):
+        busy_ms += max(0.0, stop - max(start, end)) / 1e3
+        end = max(end, stop)
     host = sorted((e for e in events if str(e.device_type).endswith("CPU")),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     return dict(wall_ms=round(wall_ms, 3), device_busy_ms=round(busy_ms, 3),
-                busy_share=round(busy_ms / wall_ms, 4),
+                busy_share=round(busy_ms / wall_ms, 4), kernel_ms=round(kernel_ms, 3),
                 kernels=[(e.key, round(dev_ms(e), 3), e.count) for e in
                          sorted(kernels, key=dev_ms, reverse=True)],
                 host=[(e.key, round(e.self_cpu_time_total / 1e3, 3), e.count) for e in host])
@@ -1219,13 +1602,22 @@ def main() -> int:
     eng, launches, serve_err, serve_rows = serve()
     make_audible(eng)
     cpu = serve_parity(eng, gain=True)
-    state = estimator(eng)  # phase 12 profiles from here, as before the new phases
+    state = estimator(eng)  # phase 16 profiles from here, as before the phases after 6
     audio_ops()
     path_errs = [serve_err, istft_serve(serve_rows), streaming(eng, cpu), queue(eng),
                  synthesizer_and_denoiser(eng, cpu)]
     t0 = time.perf_counter()
     train_launches, train_errs = training()
     log(f"training phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    vocoder_gan()
+    log(f"vocoder GAN phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    e2e_launches, e2e_errs = joint_e2e()
+    log(f"e2e phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    path_errs.append(bundle())
+    log(f"bundle phase: {time.perf_counter() - t0:.1f} s")
     set_estimator(eng, state)
     profile(eng, REQUESTS[-1])
     main_row = attn[2]  # the decoder's largest bucket
@@ -1239,18 +1631,20 @@ def main() -> int:
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
         library_ms=main_row["library_ms"],
     )]
-    train_row = train_kernels[0]  # the training bucket of the phase 12 batch
+    train_row = train_kernels[0]  # the training bucket of the phase 12 and 14 batch
     for name, replaces, library_ms in (
             ("mas", "e2e_tts_tpu/ops/mas.py:21", None),
             ("ctc_fwd", "e2e_tts_tpu/ops/ctc.py:30", train_row["ctc_library_fwd_ms"]),
             # F.ctc_loss forward and backward: no PyTorch call runs the backward alone
             ("ctc_bwd", "e2e_tts_tpu/ops/ctc.py:30", train_row["ctc_library_ms"])):
-        errs = [train_errs[name]] + [r[{"mas": "mas_err", "ctc_fwd": "ctc_loss_err",
-                                        "ctc_bwd": "ctc_grad_err"}[name]] for r in train_kernels]
+        errs = [train_errs[name], e2e_errs[name]] + [
+            r[{"mas": "mas_err", "ctc_fwd": "ctc_loss_err", "ctc_bwd": "ctc_grad_err"}[name]]
+            for r in train_kernels]
         kernels.append(dict(
             name=name, route="cuda",
             source=f"e2e_tts_tpu_torch/kernels/csrc/{'mas' if name == 'mas' else 'ctc'}.cu",
-            replaces=replaces, launches=train_launches[name], max_abs_err=max(errs),
+            replaces=replaces, launches=train_launches[name] + e2e_launches[name],
+            max_abs_err=max(errs),
             ms=train_row[f"{name}_ms"], plain_ms=train_row[f"{name}_plain_ms"],
             bound_ms=train_row[f"{name}_bound_ms"], bound_by=train_row[f"{name}_bound_by"],
             library_ms=library_ms))

@@ -8,7 +8,13 @@ Layouts:
   over (k, in) for each output channel, then (out, in, k);
 - a weight-norm transposed conv ``{v, g}`` (k, in, out) becomes (in, out, k)
   with no flip: the JAX package flips the kernel inside its apply, which is
-  what ``conv_transpose1d`` does by definition.
+  what ``conv_transpose1d`` does by definition;
+- a 2-D conv kernel (kh, kw, in, out) becomes (out, in, kh, kw).
+
+A weight-norm pair is fused into one kernel unless the target module keeps
+it: where the target's names (``names``, its ``state_dict`` keys) hold
+``<conv>.v``, as the training forms of the vocoder and the discriminators
+do, ``v`` takes the kernel's layout and ``g`` lands as it is.
 
 Every array must land on a parameter or buffer of the same shape, and every
 parameter and buffer must receive one (the acoustic model's aligner
@@ -18,7 +24,7 @@ included); anything else raises.
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -62,27 +68,32 @@ def _torch_name(path: str) -> str:
 
 
 def _layout(name: str, leaf: str, arr: np.ndarray) -> np.ndarray:
-    if leaf != "kernel":
+    if leaf not in ("kernel", "v"):
         return arr
     if arr.ndim == 2:
         return arr.T  # Dense (in, out) -> Linear (out, in)
-    if ".ups." in name:
+    if arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)  # (kh, kw, in, out) -> (out, in, kh, kw)
+    if ".ups." in f".{name}":
         return arr.transpose(1, 2, 0)  # (k, in, out) -> (in, out, k), no flip
     return arr.transpose(2, 1, 0)  # (k, in, out) -> (out, in, k)
 
 
-def convert(variables: dict) -> Dict[str, np.ndarray]:
-    """JAX variables {"params": ..., ["batch_stats": ...]} -> {torch name: array}."""
+def convert(variables: dict, names: Optional[Iterable[str]] = None) -> Dict[str, np.ndarray]:
+    """JAX variables {"params": ..., ["batch_stats": ...]} -> {torch name: array}.
+    ``names``: the target module's parameter and buffer names; a weight-norm
+    pair stays (v, g) where they hold its ``v``, and is fused otherwise."""
     flat = {}
     for collection, tree in variables.items():
         if collection not in ("params", "batch_stats"):
             raise ValueError(f"unexpected variable collection {collection!r}")
         flat.update(_flatten(tree))
+    keep = set(names or ())
     wn = {p.rsplit("/", 1)[0] for p in flat if p.endswith("/v")}
     out = {}
     for path, arr in flat.items():
         parent, leaf = path.rsplit("/", 1)
-        if parent in wn and leaf in ("v", "g"):
+        if parent in wn and leaf in ("v", "g") and _torch_name(f"{parent}/v") not in keep:
             if leaf == "g":
                 continue
             arr, path = fuse_weight_norm(arr, flat[f"{parent}/g"]), f"{parent}/kernel"
@@ -97,8 +108,8 @@ def load_into(module: torch.nn.Module, variables: dict) -> int:
     """Copy JAX ``variables`` into ``module`` in place.  Returns the number of
     arrays placed.  Raises on a leftover array, a shape or dtype mismatch, or
     a parameter/buffer that received nothing."""
-    arrays = convert(variables)
     state = module.state_dict()
+    arrays = convert(variables, state)
     targets = set(state)
     leftover = sorted(set(arrays) - targets)
     missing = sorted(targets - set(arrays))

@@ -8,18 +8,25 @@ import numpy as np
 from ..audio.mel import inverse_stft
 from ..config import Config, IstftNetConfig
 from ..nn.common import fuse_weight_norm as _fuse
-from ..nn.hifigan import HifiGanGenerator, IstftNetGenerator
+from ..device import resolve_device
+from ..nn.hifigan import (HifiGanGenerator, IstftNetGenerator, TrainableHifiGan,
+                          TrainableIstftNet, fuse_generator)
 
 
-def build_generator(config: Config, kind: str = "hifigan", **kw):
-    """kind "hifigan" or "istft"; ``kw`` (device, generator, seed) go to the module."""
-    if kind == "hifigan":
-        return HifiGanGenerator.from_config(config.models.hifigan,
-                                            config.audio.mel.channels, **kw)
-    if kind == "istft":
-        return IstftNetGenerator.from_config(config.models.istft,
-                                             config.audio.mel.channels, **kw)
-    raise ValueError(f"unknown vocoder kind {kind!r}")
+def build_generator(config: Config, kind: str = "hifigan", train: bool = False, **kw):
+    """kind "hifigan" or "istft"; ``kw`` (device, generator, seed) go to the
+    module.  ``train``: the training form (weight norm as parameters,
+    autograd on; ``fuse_generator`` gives its serving form), on CUDA unless
+    ``device`` says otherwise; the serving form otherwise."""
+    if kind not in ("hifigan", "istft"):
+        raise ValueError(f"unknown vocoder kind {kind!r}")
+    cfg = config.models.hifigan if kind == "hifigan" else config.models.istft
+    if train:
+        kw["device"] = resolve_device(kw.get("device"))
+        cls = TrainableHifiGan if kind == "hifigan" else TrainableIstftNet
+    else:
+        cls = HifiGanGenerator if kind == "hifigan" else IstftNetGenerator
+    return cls.from_config(cfg, config.audio.mel.channels, **kw)
 
 
 def istft_to_audio(spec, phase, cfg: IstftNetConfig):

@@ -139,6 +139,105 @@ class ConvTranspose1d(nn.Module):
                                   padding=self.padding)
 
 
+def same_padding(length: int, kernel_size: int, stride: int = 1, dilation: int = 1):
+    """XLA's SAME padding of a ``length``-long axis: ceil(length / stride)
+    outputs, the pad split (total // 2, total - total // 2)."""
+    eff = (kernel_size - 1) * dilation + 1
+    total = max((-(-length // stride) - 1) * stride + eff - length, 0)
+    return total // 2, total - total // 2
+
+
+class _WeightNorm(nn.Module):
+    """Weight norm as trainable parameters, one for one with the JAX
+    package's leaves: ``v`` (normal(0.01) from ``generator``), ``g`` (``||v||``
+    at init) and ``bias`` (zeros).  The kernel is
+    ``w = g * v / max(||v||, 1e-12)``, the norm taken for each output channel
+    over every other axis (``norm_dims``), as JAX takes it over all but the
+    last axis of its (..., in, out) kernel.  Autograd and the optimizer see v
+    and g, never w."""
+
+    def __init__(self, shape, out_dim: int, *, generator: torch.Generator, device=None,
+                 std: float = 0.01):
+        super().__init__()
+        self.out_dim = out_dim
+        self.norm_dims = tuple(i for i in range(len(shape)) if i != out_dim)
+        v = _normal(shape, std, generator, device)
+        self.v = nn.Parameter(v)
+        self.g = nn.Parameter(torch.linalg.vector_norm(v, dim=self.norm_dims))
+        self.bias = nn.Parameter(torch.zeros(shape[out_dim], device=device))
+
+    def weight(self) -> torch.Tensor:
+        norm = torch.linalg.vector_norm(self.v, dim=self.norm_dims, keepdim=True)
+        view = [1] * self.v.dim()
+        view[self.out_dim] = -1
+        return self.v * (self.g.view(view) / torch.clamp(norm, min=1e-12))
+
+
+class WNConv1d(_WeightNorm):
+    """Weight-normalised 1-D convolution (the JAX ``WNConv1d``), ``v`` as
+    (out, in / groups, k).  ``padding`` is "SAME" (XLA's, asymmetric for even
+    effective kernels) or an explicit (left, right)."""
+
+    def __init__(self, d_in: int, d_out: int, kernel_size: int, stride: int = 1,
+                 dilation: int = 1, groups: int = 1, padding="SAME", *,
+                 generator: torch.Generator, device=None):
+        super().__init__((d_out, d_in // groups, kernel_size), 0, generator=generator,
+                         device=device)
+        self.kernel_size, self.stride, self.dilation, self.groups = (
+            kernel_size, stride, dilation, groups)
+        self.padding = padding if isinstance(padding, str) else tuple(padding)
+
+    def conv_ncw(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, C_in, T) -> (B, C_out, T_out)."""
+        left, right = (same_padding(x.shape[-1], self.kernel_size, self.stride, self.dilation)
+                       if self.padding == "SAME" else self.padding)
+        if left != right:
+            x, left = F.pad(x, (left, right)), 0
+        return F.conv1d(x, self.weight(), self.bias, stride=self.stride, padding=left,
+                        dilation=self.dilation, groups=self.groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, C_in) -> (B, T_out, C_out)."""
+        return self.conv_ncw(x.transpose(1, 2)).transpose(1, 2)
+
+
+class WNConvTranspose1d(_WeightNorm):
+    """Weight-normalised transposed convolution (the JAX
+    ``WNConvTranspose1d``): ``v`` as (in, out, k), the layout
+    ``conv_transpose1d`` takes, so the norm runs over dims (0, 2), not
+    torch ``weight_norm``'s default dim 0.  Padding (k - u) // 2: T frames
+    become T * u samples."""
+
+    def __init__(self, d_in: int, d_out: int, kernel_size: int, stride: int, *,
+                 generator: torch.Generator, device=None):
+        super().__init__((d_in, d_out, kernel_size), 1, generator=generator, device=device)
+        self.stride = stride
+        self.padding = (kernel_size - stride) // 2
+
+    def conv_ncw(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose1d(x, self.weight(), self.bias, stride=self.stride,
+                                  padding=self.padding)
+
+
+class WNConv2d(_WeightNorm):
+    """Weight-normalised 2-D convolution over NCHW (the JAX discriminators'
+    ``WNConv2d``, NHWC there), ``v`` as (out, in, kh, kw); ``padding`` is
+    ((top, bottom), (left, right))."""
+
+    def __init__(self, d_in: int, d_out: int, kernel_size, stride=(1, 1),
+                 padding=((0, 0), (0, 0)), *, generator: torch.Generator, device=None):
+        super().__init__((d_out, d_in, *kernel_size), 0, generator=generator, device=device)
+        self.stride = tuple(stride)
+        (top, bottom), (left, right) = padding
+        if top != bottom or left != right:
+            raise ValueError(f"asymmetric 2-D padding {padding} is not supported")
+        self.padding = (top, left)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, C_in, H, W) -> (B, C_out, H_out, W_out)."""
+        return F.conv2d(x, self.weight(), self.bias, stride=self.stride, padding=self.padding)
+
+
 class LayerNorm(nn.LayerNorm):
     """LayerNorm over the feature axis with the eps passed in."""
 

@@ -1,8 +1,15 @@
 """HiFi-GAN and iSTFTNet generators (port of ``e2e_tts_tpu/nn/hifigan.py``).
 
-Weight norm is fused into plain kernels when weights are carried across
-(``convert.py``), the serving form.  The stack runs channels-first inside;
-the public ``forward`` takes (B, T, n_mels) like the JAX package.
+Two forms of each.  The serving form (``HifiGanGenerator``,
+``IstftNetGenerator``) holds plain kernels with the weight norm fused (by
+``convert.py`` or ``fuse_generator``), runs under ``torch.no_grad()`` and
+has no trainable parameter.  The training form (``TrainableHifiGan``,
+``TrainableIstftNet``) holds the weight norm's (v, g) as parameters, one for
+one with the JAX tree, and records autograd; ``fuse_generator`` turns it into
+the serving form.  Both draw their weights in the same order from the same
+generator, so a training form fused at init is its seed's serving form.  The
+stack runs channels-first inside; the public ``forward`` takes
+(B, T, n_mels) like the JAX package.
 """
 
 from __future__ import annotations
@@ -13,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import Conv1d, ConvTranspose1d
+from .common import Conv1d, ConvTranspose1d, WNConv1d, WNConvTranspose1d, _WeightNorm
 
 LRELU_SLOPE = 0.1
 # the reference's final activation uses torch's default slope, not LRELU_SLOPE
@@ -25,16 +32,24 @@ def _lrelu(x, slope: float = LRELU_SLOPE):
     return F.leaky_relu(x, slope)
 
 
+def _conv(weight_norm: bool, d_in: int, d_out: int, kernel_size: int, dilation: int = 1, **kw):
+    """A stride-1 SAME convolution: weight-normalised (training) or plain (serving)."""
+    if weight_norm:
+        return WNConv1d(d_in, d_out, kernel_size, dilation=dilation, **kw)
+    return Conv1d(d_in, d_out, kernel_size, dilation, std=WN_STD, **kw)
+
+
 class ResBlock1(nn.Module):
     """2-conv residual unit x len(dilations)."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
-                 dilations: Sequence[int] = (1, 3, 5), *, generator, device=None):
+                 dilations: Sequence[int] = (1, 3, 5), *, generator, device=None,
+                 weight_norm: bool = False):
         super().__init__()
-        kw = dict(generator=generator, device=device, std=WN_STD)
-        self.convs1 = nn.ModuleList(Conv1d(channels, channels, kernel_size, d, **kw)
+        kw = dict(generator=generator, device=device)
+        self.convs1 = nn.ModuleList(_conv(weight_norm, channels, channels, kernel_size, d, **kw)
                                     for d in dilations)
-        self.convs2 = nn.ModuleList(Conv1d(channels, channels, kernel_size, 1, **kw)
+        self.convs2 = nn.ModuleList(_conv(weight_norm, channels, channels, kernel_size, 1, **kw)
                                     for _ in dilations)
 
     def forward(self, x):
@@ -48,10 +63,11 @@ class ResBlock2(nn.Module):
     """1-conv residual unit x len(dilations)."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
-                 dilations: Sequence[int] = (1, 3), *, generator, device=None):
+                 dilations: Sequence[int] = (1, 3), *, generator, device=None,
+                 weight_norm: bool = False):
         super().__init__()
-        kw = dict(generator=generator, device=device, std=WN_STD)
-        self.convs = nn.ModuleList(Conv1d(channels, channels, kernel_size, d, **kw)
+        kw = dict(generator=generator, device=device)
+        self.convs = nn.ModuleList(_conv(weight_norm, channels, channels, kernel_size, d, **kw)
                                    for d in dilations)
 
     def forward(self, x):
@@ -65,19 +81,21 @@ class _GeneratorTrunk(nn.Module):
 
     def __init__(self, n_mels: int, upsample_rates, upsample_kernel_sizes,
                  upsample_initial_channel: int, resblock_kernel_sizes,
-                 resblock_dilation_sizes, resblock_type: int = 1, *, generator, device=None):
+                 resblock_dilation_sizes, resblock_type: int = 1, *, generator, device=None,
+                 weight_norm: bool = False):
         super().__init__()
         kw = dict(generator=generator, device=device)
         Res = ResBlock1 if resblock_type == 1 else ResBlock2
-        self.conv_pre = Conv1d(n_mels, upsample_initial_channel, 7, std=WN_STD, **kw)
+        self.conv_pre = _conv(weight_norm, n_mels, upsample_initial_channel, 7, **kw)
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
         ch_in = upsample_initial_channel
         for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
             ch = upsample_initial_channel // (2 ** (i + 1))
-            self.ups.append(ConvTranspose1d(ch_in, ch, k, u, std=WN_STD, **kw))
+            self.ups.append(WNConvTranspose1d(ch_in, ch, k, u, **kw) if weight_norm
+                            else ConvTranspose1d(ch_in, ch, k, u, std=WN_STD, **kw))
             self.resblocks.append(nn.ModuleList(
-                Res(ch, rk, tuple(rd), **kw)
+                Res(ch, rk, tuple(rd), weight_norm=weight_norm, **kw)
                 for rk, rd in zip(resblock_kernel_sizes, resblock_dilation_sizes)))
             ch_in = ch
         self.out_channels = ch_in
@@ -98,6 +116,8 @@ class _GeneratorTrunk(nn.Module):
 class HifiGanGenerator(nn.Module):
     """mel (B, T, n_mels) -> waveform (B, T * prod(rates)) in [-1, 1]."""
 
+    weight_norm = False
+
     def __init__(self, n_mels: int = 80, upsample_rates: Tuple[int, ...] = (8, 8, 2, 2),
                  upsample_kernel_sizes: Tuple[int, ...] = (16, 16, 4, 4),
                  upsample_initial_channel: int = 512,
@@ -106,14 +126,22 @@ class HifiGanGenerator(nn.Module):
                  resblock_type: int = 1, *, device=None,
                  generator: Optional[torch.Generator] = None, seed: int = 0):
         super().__init__()
+        self.hparams = dict(n_mels=n_mels, upsample_rates=upsample_rates,
+                            upsample_kernel_sizes=upsample_kernel_sizes,
+                            upsample_initial_channel=upsample_initial_channel,
+                            resblock_kernel_sizes=resblock_kernel_sizes,
+                            resblock_dilation_sizes=resblock_dilation_sizes,
+                            resblock_type=resblock_type)
         g = generator if generator is not None else torch.Generator().manual_seed(seed)
         kw = dict(generator=g, device=device)
         self.trunk = _GeneratorTrunk(n_mels, upsample_rates, upsample_kernel_sizes,
                                      upsample_initial_channel, resblock_kernel_sizes,
-                                     resblock_dilation_sizes, resblock_type, **kw)
-        self.conv_post = Conv1d(self.trunk.out_channels, 1, 7, std=WN_STD, **kw)
-        self.eval()
-        self.requires_grad_(False)
+                                     resblock_dilation_sizes, resblock_type,
+                                     weight_norm=self.weight_norm, **kw)
+        self.conv_post = _conv(self.weight_norm, self.trunk.out_channels, 1, 7, **kw)
+        if not self.weight_norm:
+            self.eval()
+            self.requires_grad_(False)
 
     @classmethod
     def from_config(cls, cfg, n_mels: int = 80, **kw):
@@ -121,11 +149,14 @@ class HifiGanGenerator(nn.Module):
                    cfg.upsample_initial_channel, tuple(cfg.resblock_kernel_sizes),
                    tuple(tuple(d) for d in cfg.resblock_dilation_sizes), cfg.resblock, **kw)
 
-    @torch.no_grad()
-    def forward(self, mel):
+    def generate(self, mel):
         x = self.trunk(mel.transpose(1, 2))
         x = self.conv_post.conv_ncw(_lrelu(x, FINAL_SLOPE).float())
         return torch.tanh(x)[:, 0, :]
+
+    @torch.no_grad()
+    def forward(self, mel):
+        return self.generate(mel)
 
 
 class IstftNetGenerator(nn.Module):
@@ -133,6 +164,8 @@ class IstftNetGenerator(nn.Module):
     spectrum, magnitude ``exp`` and phase ``sin``, which
     ``models.vocoder.istft_to_audio`` inverts.  mel (B, T, n_mels) ->
     (spec, phase), each (B, n_fft // 2 + 1, T * prod(rates) + 1)."""
+
+    weight_norm = False
 
     def __init__(self, n_mels: int = 80, gen_istft_n_fft: int = 16,
                  upsample_rates: Tuple[int, ...] = (8, 8),
@@ -143,16 +176,25 @@ class IstftNetGenerator(nn.Module):
                  resblock_type: int = 1, *, device=None,
                  generator: Optional[torch.Generator] = None, seed: int = 0):
         super().__init__()
+        self.hparams = dict(n_mels=n_mels, gen_istft_n_fft=gen_istft_n_fft,
+                            upsample_rates=upsample_rates,
+                            upsample_kernel_sizes=upsample_kernel_sizes,
+                            upsample_initial_channel=upsample_initial_channel,
+                            resblock_kernel_sizes=resblock_kernel_sizes,
+                            resblock_dilation_sizes=resblock_dilation_sizes,
+                            resblock_type=resblock_type)
         g = generator if generator is not None else torch.Generator().manual_seed(seed)
         kw = dict(generator=g, device=device)
         self.n_fft = gen_istft_n_fft
         self.trunk = _GeneratorTrunk(n_mels, upsample_rates, upsample_kernel_sizes,
                                      upsample_initial_channel, resblock_kernel_sizes,
-                                     resblock_dilation_sizes, resblock_type, **kw)
-        self.conv_post = Conv1d(self.trunk.out_channels, gen_istft_n_fft + 2, 7,
-                                std=WN_STD, **kw)
-        self.eval()
-        self.requires_grad_(False)
+                                     resblock_dilation_sizes, resblock_type,
+                                     weight_norm=self.weight_norm, **kw)
+        self.conv_post = _conv(self.weight_norm, self.trunk.out_channels, gen_istft_n_fft + 2,
+                               7, **kw)
+        if not self.weight_norm:
+            self.eval()
+            self.requires_grad_(False)
 
     @classmethod
     def from_config(cls, cfg, n_mels: int = 80, **kw):
@@ -161,11 +203,53 @@ class IstftNetGenerator(nn.Module):
                    tuple(cfg.resblock_kernel_sizes),
                    tuple(tuple(d) for d in cfg.resblock_dilation_sizes), cfg.resblock, **kw)
 
-    @torch.no_grad()
-    def forward(self, mel):
+    def generate(self, mel):
         x = _lrelu(self.trunk(mel.transpose(1, 2)), FINAL_SLOPE).float()
         # the reference's reflection pad (1, 0) on time: sample 1 in front
         x = torch.cat([x[..., 1:2], x], dim=-1)
         x = self.conv_post.conv_ncw(x)
         half = self.n_fft // 2 + 1
         return torch.exp(x[:, :half]), torch.sin(x[:, half:])
+
+    @torch.no_grad()
+    def forward(self, mel):
+        return self.generate(mel)
+
+
+class TrainableHifiGan(HifiGanGenerator):
+    """The HiFi-GAN generator's training form: weight-normalised
+    convolutions whose (v, g, bias) are parameters, a forward that records
+    autograd."""
+
+    weight_norm = True
+
+    def forward(self, mel):
+        return self.generate(mel)
+
+
+class TrainableIstftNet(IstftNetGenerator):
+    """The iSTFTNet generator's training form (see ``TrainableHifiGan``)."""
+
+    weight_norm = True
+
+    def forward(self, mel):
+        return self.generate(mel)
+
+
+_SERVING = {TrainableHifiGan: HifiGanGenerator, TrainableIstftNet: IstftNetGenerator}
+
+
+@torch.no_grad()
+def fuse_generator(trained: nn.Module) -> nn.Module:
+    """The serving form of a training-form generator, on its device: each
+    weight-normalised convolution's ``g * v / max(||v||, 1e-12)`` becomes the
+    plain kernel (the JAX package's ``fuse_weight_norm``), biases copied."""
+    device = next(trained.parameters()).device
+    serving = _SERVING[type(trained)](**trained.hparams, device=device)
+    state = {}
+    for name, module in trained.named_modules():
+        if isinstance(module, _WeightNorm):
+            state[f"{name}.weight"] = module.weight()
+            state[f"{name}.bias"] = module.bias
+    serving.load_state_dict(state)  # strict: every kernel and bias placed
+    return serving

@@ -7,7 +7,7 @@ the JAX package trains it, on CUDA unless the caller passes a device;
 ``train_step(state, batch) -> (state, metrics)``: forward in training mode
 (dropout from the state's generator, BatchNorm on batch statistics), the
 FastSpeech2 losses, backward (MAS and the forward-sum CTC through their
-kernels on CUDA), one ``NoamAdam`` update.  With ``grad_acc_step`` N > 1 the
+kernels on CUDA), one ``ScheduledAdam`` update.  With ``grad_acc_step`` N > 1 the
 batch splits into N microbatches whose gradients are summed and scaled by
 1/N before the one update, as the JAX step does.  ``make_eval_step`` is the
 deterministic pass: eval mode, no gradient.
@@ -28,7 +28,7 @@ import torch
 from ..models.acoustic import FastSpeech2
 from ..models.acoustic_loss import fastspeech2_loss
 from ..nn.variance import FeatureStats
-from .optim import AdamState, NoamAdam
+from .optim import AdamState, ScheduledAdam
 
 
 class AcousticBatch(NamedTuple):
@@ -90,7 +90,7 @@ class AcousticTrainState:
     rng: torch.Generator
 
 
-def init_train_state(model: FastSpeech2, optimizer: NoamAdam, seed: int = 0) -> AcousticTrainState:
+def init_train_state(model: FastSpeech2, optimizer: ScheduledAdam, seed: int = 0) -> AcousticTrainState:
     """Step 0, fresh moments, and a dropout generator on the model's device."""
     device = next(model.parameters()).device
     rng = torch.Generator(device=device).manual_seed(seed)
@@ -115,7 +115,7 @@ def _losses(model, config, batch: AcousticBatch, step: int, n_words: int, rng=No
                             n_words, step, config.train.fastspeech2_loss, use_uv=ve.use_uv)
 
 
-def make_train_step(model: FastSpeech2, config, optimizer: NoamAdam, n_words: int):
+def make_train_step(model: FastSpeech2, config, optimizer: ScheduledAdam, n_words: int):
     """Returns ``train_step(state, batch) -> (state, metrics)``; the state is
     updated in place and returned.  Metrics: every loss term, ``total`` and
     ``grad_norm`` (before clipping)."""

@@ -1,8 +1,10 @@
-"""The acoustic model's optimizer (port of ``e2e_tts_tpu/train/optim.py``):
-Adam with a Noam warm-up/decay scaled by encoder_hidden^-0.5, annealed by
-``anneal_rate`` past each milestone, after global-norm gradient clipping.
+"""Optimizers (port of ``e2e_tts_tpu/train/optim.py``): the acoustic
+model's Adam with a Noam warm-up/decay scaled by encoder_hidden^-0.5,
+annealed by ``anneal_rate`` past each milestone, and the vocoder GAN's Adam
+with a continuous exponential learning-rate decay; both after global-norm
+gradient clipping.
 
-It is the JAX package's optax chain written out on torch tensors:
+Each is the JAX package's optax chain written out on torch tensors:
 ``clip_by_global_norm`` (scaled by max_norm / norm where the global norm is
 not below max_norm), ``scale_by_adam`` (bias-corrected, eps outside the
 square root), ``add_decayed_weights`` when weight_decay is set,
@@ -47,9 +49,10 @@ class AdamState:
     nu: List[torch.Tensor]
 
 
-class NoamAdam:
+class ScheduledAdam:
     """Clip -> Adam -> (weight decay) -> schedule -> descend, as optax chains
-    them.  ``init(params)`` makes the state; ``apply(params, grads, state)``
+    them.  The clip's global norm runs over every tensor given to one
+    ``apply``: for the discriminators, MPD's and MSD's together.  ``init(params)`` makes the state; ``apply(params, grads, state)``
     updates the parameters in place and returns the global norm of ``grads``
     (before clipping) as a device scalar, with no host sync."""
 
@@ -93,8 +96,33 @@ class NoamAdam:
         return norm
 
 
-def acoustic_optimizer(cfg, encoder_hidden: int) -> NoamAdam:
+NoamAdam = ScheduledAdam  # the acoustic optimizer's earlier name, kept importable
+
+
+def acoustic_optimizer(cfg, encoder_hidden: int) -> ScheduledAdam:
     """Noam-scheduled Adam for FastSpeech2 from an ``OptimizerConfig``."""
     sched = noam_schedule(encoder_hidden, cfg.warm_up_step, cfg.anneal_steps, cfg.anneal_rate)
-    return NoamAdam(sched, cfg.betas[0], cfg.betas[1], cfg.eps, cfg.grad_clip_thresh,
-                    cfg.weight_decay)
+    return ScheduledAdam(sched, cfg.betas[0], cfg.betas[1], cfg.eps, cfg.grad_clip_thresh,
+                         cfg.weight_decay)
+
+
+def exponential_decay(init_value: float, decay_rate: float,
+                      transition_steps: int = 1000) -> Callable[[int], float]:
+    """optax's ``exponential_decay`` without staircase:
+    lr(count) = init_value * decay_rate ** (count / transition_steps)."""
+
+    def schedule(count: int) -> float:
+        return init_value * decay_rate ** (int(count) / transition_steps)
+
+    return schedule
+
+
+def gan_optimizer(cfg, decay_gamma: float = 0.999) -> ScheduledAdam:
+    """Adam for the vocoder's generator or discriminators from an
+    ``OptimizerConfig``: clip at ``grad_clip_thresh``, Adam with ``betas`` and
+    ``eps``, the learning rate decayed by ``decay_gamma`` every 1000 updates
+    (continuously).  No weight decay: the config's ``weight_decay`` slot of
+    ``hifigan_optimizer`` holds 0.999, the reference's decay gamma, and is
+    not read here."""
+    return ScheduledAdam(exponential_decay(cfg.learning_rate, decay_gamma), cfg.betas[0],
+                         cfg.betas[1], cfg.eps, cfg.grad_clip_thresh)

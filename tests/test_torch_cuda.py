@@ -1,6 +1,7 @@
 """The port on the card: its CUDA kernels against their plain PyTorch
 versions, its audio ops on CUDA against the CPU, the batching queue on a
-small CUDA engine, and one train step that launches the training kernels.
+small CUDA engine, one train step and two joint acoustic + vocoder steps
+that launch the training kernels, and a vocoder GAN step against the CPU.
 
 Every test here is marked ``cuda`` and skips without a GPU.  The file imports
 no JAX, so it also runs where JAX is not installed:
@@ -12,7 +13,9 @@ Bars: attention max error < 2e-5 on valid query rows, every row finite
 against the CPU, and ``inverse_stft`` bit-equal run to run; the queue's
 results equal to a solo ``synthesize`` within 1 LSB on average; MAS
 bit-equal to its plain version; the CTC loss within 1e-5 relative and its
-gradient within 1e-5 x max |grad| of the plain versions.
+gradient within 1e-5 x max |grad| of the plain versions; one vocoder GAN
+step against the CPU within 1e-4 (metrics) and 1e-3 (each module's
+gradient, relative norm), cuDNN's TF32 off.
 """
 
 import numpy as np
@@ -263,17 +266,14 @@ def test_ctc_kernels_match_plain(cuda, seed, B, T, K, tl, ml):
             assert loss[b].item() == 0 and not grad[b].any()
 
 
-def test_train_step_launches_the_training_kernels(cuda):
-    """One train step of a small model on the card launches MAS once, the CTC
-    forward once and the CTC backward once; its losses are finite."""
+def _small_acoustic(device):
+    """A one-layer FastSpeech2 with its aligner, its config, and a batch of
+    3 rows in the JAX ``_collate`` layout."""
     from e2e_tts_tpu_torch.audio import beta_binomial_prior
     from e2e_tts_tpu_torch.config import default_config
-    from e2e_tts_tpu_torch.kernels.ctc import ctc_bwd, ctc_fwd
-    from e2e_tts_tpu_torch.kernels.mas import mas
     from e2e_tts_tpu_torch.models.acoustic import FastSpeech2
     from e2e_tts_tpu_torch.nn.variance import FeatureStats
-    from e2e_tts_tpu_torch.train import (AcousticBatch, acoustic_optimizer, init_train_state,
-                                         make_train_step)
+    from e2e_tts_tpu_torch.train import AcousticBatch
 
     cfg = default_config()
     fs2 = cfg.models.fastspeech2
@@ -282,9 +282,7 @@ def test_train_step_launches_the_training_kernels(cuda):
                           transformer=fs2.building_block.transformer.replace(conv_filter_size=64)),
                       postnet=fs2.postnet.replace(embedding_dim=64, conv_layers=2))
     cfg = cfg.replace(models=cfg.models.replace(fastspeech2=fs2))
-    model = FastSpeech2(fs2, 40, 2, 80, FeatureStats(), device=cuda)
-    opt = acoustic_optimizer(cfg.train.fastspeech2_optimizer, 64)
-    state = init_train_state(model, opt)
+    model = FastSpeech2(fs2, 40, 2, 80, FeatureStats(), device=device)
     rng = np.random.RandomState(60)
     B, L, T = 3, 20, 90
     tl, ml = np.array([20, 13, 7]), np.array([90, 60, 31])
@@ -295,9 +293,117 @@ def test_train_step_launches_the_training_kernels(cuda):
         arrays[1][b, :tl[b]] = rng.randint(1, 40, tl[b])
         arrays[4][b, :ml[b]] = rng.randn(ml[b], 80) - 4.0
         arrays[6][b, :ml[b], :tl[b]] = beta_binomial_prior(tl[b], ml[b])
-    batch = AcousticBatch.from_numpy(arrays, cuda)
+    return model, cfg, AcousticBatch.from_numpy(arrays, device)
+
+
+def test_train_step_launches_the_training_kernels(cuda):
+    """One train step of a small model on the card launches MAS once, the CTC
+    forward once and the CTC backward once; its losses are finite."""
+    from e2e_tts_tpu_torch.kernels.ctc import ctc_bwd, ctc_fwd
+    from e2e_tts_tpu_torch.kernels.mas import mas
+    from e2e_tts_tpu_torch.train import acoustic_optimizer, init_train_state, make_train_step
+
+    model, cfg, batch = _small_acoustic(cuda)
+    opt = acoustic_optimizer(cfg.train.fastspeech2_optimizer, 64)
+    state = init_train_state(model, opt)
     before = (mas.launches, ctc_fwd.launches, ctc_bwd.launches)
     _, metrics = make_train_step(model, cfg, opt, 32)(state, batch)
     torch.cuda.synchronize()
     assert (mas.launches, ctc_fwd.launches, ctc_bwd.launches) == tuple(n + 1 for n in before)
     assert all(torch.isfinite(v).item() for v in metrics.values())
+
+
+TINY_GEN = dict(upsample_initial_channel=16, resblock_kernel_sizes=(3,),
+                resblock_dilation_sizes=((1, 3),))
+
+
+def _tiny_gan(cfg, device):
+    """A tiny training-form HiFi-GAN and tiny discriminators, each kernel at
+    norm U(0.5, 1.5) a channel (a level-keeping network, as a trained one)."""
+    from e2e_tts_tpu_torch.models.vocoder import build_generator
+    from e2e_tts_tpu_torch.nn.discriminators import TINY_MSD_SPECS, build_discriminators
+
+    cfg = cfg.replace(models=cfg.models.replace(hifigan=cfg.models.hifigan.replace(**TINY_GEN)))
+    gen = build_generator(cfg, "hifigan", train=True, device=device)
+    mpd, msd = build_discriminators(device, periods=(2, 3), mpd_channels=(4, 8), n_scales=2,
+                                    msd_specs=TINY_MSD_SPECS)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in (gen, mpd, msd):
+            for name, p in m.named_parameters():
+                if name.endswith(".g"):
+                    p.copy_(0.5 + torch.rand(p.shape, generator=g))
+    return cfg, gen, mpd, msd
+
+
+def _speech(B, n, seed):
+    rng = np.random.RandomState(seed)
+    t = np.arange(n) / 22050.0
+    a = sum(0.2 * np.sin(2 * np.pi * f * t + rng.rand() * 6) for f in (140.0, 290.0, 610.0))
+    return (a[None] + 0.02 * rng.randn(B, n)).astype(np.float32)
+
+
+def test_vocoder_step_on_cuda_matches_cpu(cuda):
+    """One vocoder GAN step (HiFi-GAN, then iSTFTNet) on the card against the
+    same weights and batch on the CPU, cuDNN's TF32 off: each metric within
+    1e-4 relative; the generator's and the discriminators' gradients, read
+    from Adam's first moments, within 1e-3 relative norm each (a single
+    tensor's weight gradient summed over thousands of samples moves by ~1e-3
+    with the order of the sums alone)."""
+    import copy
+
+    from e2e_tts_tpu_torch.config import default_config
+    from e2e_tts_tpu_torch.models.vocoder import build_generator
+    from e2e_tts_tpu_torch.train import (VocoderBatch, gan_optimizer, init_vocoder_train_state,
+                                         make_vocoder_train_step)
+
+    torch.backends.cudnn.allow_tf32 = False
+    for kind in ("hifigan", "istft"):
+        cfg, gen, mpd, msd = _tiny_gan(default_config(), "cpu")
+        if kind == "istft":
+            cfg = cfg.replace(models=cfg.models.replace(
+                istft=cfg.models.istft.replace(**TINY_GEN)))
+            gen = build_generator(cfg, "istft", train=True, device="cpu")
+        mel = (np.random.RandomState(7).randn(2, 8, 80) * 1.5 - 5.0).astype(np.float32)
+        arrays = (mel, _speech(2, 8 * 256, 8))
+        out = {}
+        for device in ("cpu", "cuda"):
+            mods = [copy.deepcopy(m).to(device) for m in (gen, mpd, msd)]
+            g_opt, d_opt = (gan_optimizer(cfg.train.hifigan_optimizer) for _ in range(2))
+            state = init_vocoder_train_state(mods[0], g_opt, d_opt, *mods[1:])
+            step = make_vocoder_train_step(mods[0], cfg, g_opt, d_opt, kind, *mods[1:])
+            out[device] = step(state, VocoderBatch.from_numpy(arrays, device))
+        (s_c, m_c), (s_g, m_g) = out["cpu"], out["cuda"]
+        for k, v in m_c.items():
+            assert abs(m_g[k].item() - v.item()) <= 1e-4 * abs(v.item()), (kind, k)
+        for attr in ("g_opt_state", "d_opt_state"):
+            c = torch.cat([m.flatten() for m in getattr(s_c, attr).mu])
+            g = torch.cat([m.flatten().cpu() for m in getattr(s_g, attr).mu])
+            assert ((g - c).norm() / c.norm()).item() < 1e-3, (kind, attr)
+
+
+def test_e2e_step_launches_the_training_kernels(cuda):
+    """Two joint acoustic + vocoder steps of small models on the card launch
+    MAS, the CTC forward and the CTC backward once a step each; the metrics
+    are finite and no parameter keeps a gradient."""
+    from e2e_tts_tpu_torch.kernels.ctc import ctc_bwd, ctc_fwd
+    from e2e_tts_tpu_torch.kernels.mas import mas
+    from e2e_tts_tpu_torch.train import (E2EBatch, acoustic_optimizer, gan_optimizer,
+                                         init_e2e_state, make_e2e_train_step)
+
+    model, cfg, acoustic = _small_acoustic(cuda)
+    cfg, gen, mpd, msd = _tiny_gan(cfg, cuda)
+    am_opt = acoustic_optimizer(cfg.train.fastspeech2_optimizer, 64)
+    g_opt, d_opt = (gan_optimizer(cfg.train.hifigan_optimizer) for _ in range(2))
+    state = init_e2e_state(model, gen, am_opt, g_opt, d_opt, mpd, msd)
+    step = make_e2e_train_step(model, gen, cfg, am_opt, g_opt, d_opt, 32, segment_frames=16,
+                               mpd=mpd, msd=msd)
+    batch = E2EBatch(acoustic, torch.from_numpy(_speech(3, 90 * 256, 9)).to(cuda))
+    before = (mas.launches, ctc_fwd.launches, ctc_bwd.launches)
+    for _ in range(2):
+        state, metrics = step(state, batch)
+        assert all(torch.isfinite(v).item() for v in metrics.values())
+    torch.cuda.synchronize()
+    assert (mas.launches, ctc_fwd.launches, ctc_bwd.launches) == tuple(n + 2 for n in before)
+    assert state.step == 2
+    assert all(p.grad is None for m in (model, gen, mpd, msd) for p in m.parameters())

@@ -275,7 +275,9 @@ def test_port_imports_no_jax():
                "e2e_tts_tpu_torch.train.acoustic_step", "e2e_tts_tpu_torch.train.optim",
                "e2e_tts_tpu_torch.ops.mas", "e2e_tts_tpu_torch.ops.ctc",
                "e2e_tts_tpu_torch.kernels.mas", "e2e_tts_tpu_torch.kernels.ctc",
-               "e2e_tts_tpu_torch.models.acoustic_loss", "e2e_tts_tpu_torch.audio.features"]
+               "e2e_tts_tpu_torch.models.acoustic_loss", "e2e_tts_tpu_torch.audio.features",
+               "e2e_tts_tpu_torch.nn.discriminators", "e2e_tts_tpu_torch.train.vocoder_step",
+               "e2e_tts_tpu_torch.train.e2e_step", "e2e_tts_tpu_torch.train"]
     code = (f"import sys, {', '.join(modules)}\n"
             "from e2e_tts_tpu_torch.text.frontends import get_frontend\n"
             "[get_frontend(lang) for lang in ('vie', 'eng', 'mya')]\n"
@@ -285,7 +287,7 @@ def test_port_imports_no_jax():
                          text=True, check=True, timeout=120).stdout.split()
     assert {"e2e_tts_tpu_torch.serve.engine", "e2e_tts_tpu_torch.serve.queue",
             "e2e_tts_tpu_torch.models.denoiser", "e2e_tts_tpu_torch.train.acoustic_step",
-            "e2e_tts_tpu_torch.kernels.ctc"} <= set(out)
+            "e2e_tts_tpu_torch.kernels.ctc", "e2e_tts_tpu_torch.train.e2e_step"} <= set(out)
     bad = [m for m in out if m in ("jax", "flax", "e2e_tts_tpu") or m.startswith(
         ("jax.", "flax.", "e2e_tts_tpu."))]
     assert not bad, bad

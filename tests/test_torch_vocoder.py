@@ -27,7 +27,8 @@ from e2e_tts_tpu_torch.convert import load_into
 from e2e_tts_tpu_torch.models.denoiser import Denoiser
 from e2e_tts_tpu_torch.models.vocoder import (build_generator, fuse_weight_norm, istft_to_audio,
                                               vocode)
-from e2e_tts_tpu_torch.nn.hifigan import HifiGanGenerator, IstftNetGenerator
+from e2e_tts_tpu_torch.nn.hifigan import (HifiGanGenerator, IstftNetGenerator, TrainableIstftNet,
+                                           fuse_generator)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIE_TINY = os.path.join(REPO, "assets", "bundles", "vie_tiny")
@@ -139,6 +140,57 @@ def test_istftnet_matches_jax():
     built = build_generator(config, "istft", device="cpu")
     load_into(built, params)
     np.testing.assert_array_equal(vocode(built, torch.from_numpy(mel), config, "istft").numpy(), got)
+
+
+def test_bundle_vocoder_into_the_training_form():
+    """``convert`` on ``vie_tiny/vocoder.msgpack``: into the training form
+    every array lands as it is, 38 convolutions x (v, g, bias); into the
+    serving form each (v, g) fuses, 38 x (weight, bias).  v takes the
+    kernel's layout, transposed convolutions (in, out, k).  The training
+    form's waveform equals JAX's, and fused it is the serving form's."""
+    jax_gen, params, port = _vie_tiny()
+    cfg = load_config(os.path.join(VIE_TINY, "config.yaml"))
+    trained = build_generator(cfg, train=True, device="cpu")
+    assert load_into(trained, params) == len(trained.state_dict()) == 114
+    assert load_into(port, params) == len(port.state_dict()) == 76
+    tree = params["params"]
+    np.testing.assert_array_equal(trained.trunk.ups[1].v.detach().numpy(),
+                                  tree["trunk"]["up_1"]["v"].transpose(1, 2, 0))
+    np.testing.assert_array_equal(trained.conv_post.v.detach().numpy(),
+                                  tree["conv_post"]["v"].transpose(2, 1, 0))
+    np.testing.assert_array_equal(trained.trunk.conv_pre.g.detach().numpy(),
+                                  tree["trunk"]["conv_pre"]["g"])
+    mel = np.random.RandomState(3).randn(2, 24, 80).astype(np.float32)
+    want = np.asarray(jax.jit(jax_gen.apply)(params, jnp.asarray(mel)))
+    got = trained(torch.from_numpy(mel))
+    assert got.requires_grad
+    err = np.abs(got.detach().numpy() - want)
+    assert err.mean() < MAE_TOL and err.max() < MAX_TOL, (err.mean(), err.max())
+    fused = fuse_generator(trained)
+    assert type(fused) is HifiGanGenerator
+    for name, value in port.state_dict().items():  # the norms summed in another order
+        torch.testing.assert_close(fused.state_dict()[name], value, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(fused(torch.from_numpy(mel)).numpy(),
+                               port(torch.from_numpy(mel)).numpy(), rtol=0, atol=1e-6)
+
+
+def test_istftnet_training_form_matches_jax_and_fuses():
+    """The iSTFTNet training form on JAX's (v, g): spectrum and phase against
+    JAX (the reflection pad (1, 0) included), and fused it is the serving
+    form that ``convert`` fills."""
+    jax_gen, params, port = _istft_pair()
+    trained = TrainableIstftNet(**ISTFT, device="cpu")
+    assert load_into(trained, params) == len(trained.state_dict())
+    mel = np.random.RandomState(1).randn(2, 24, 80).astype(np.float32)
+    want = [np.asarray(a) for a in jax.jit(jax_gen.apply)(params, jnp.asarray(mel))]
+    got = trained(torch.from_numpy(mel))
+    for g, w in zip(got, want):
+        assert g.requires_grad and g.shape == w.shape
+        assert np.abs(g.detach().numpy() - w).max() < MAX_TOL
+    fused = fuse_generator(trained)
+    assert type(fused) is IstftNetGenerator
+    for g, w in zip(fused(torch.from_numpy(mel)), port(torch.from_numpy(mel))):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=1e-6)
 
 
 def _bias_vocoder():

@@ -105,7 +105,8 @@ def mel_spectrogram(audio: torch.Tensor, p: MelParams, return_energy: bool = Fal
     magnitudes (..., n_frames) too."""
     mel_basis = _mel_basis(p, audio.device)
     mag = stft_magnitude(audio, p)
-    mel = dynamic_range_compression(torch.matmul(mel_basis, mag), clip_val=p.clip_val)
+    mel = dynamic_range_compression(torch.matmul(mel_basis.to(mag.dtype), mag),
+                                    clip_val=p.clip_val)
     if return_energy:
         return mel, torch.linalg.vector_norm(mag, dim=-2)
     return mel

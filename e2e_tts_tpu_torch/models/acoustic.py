@@ -7,6 +7,11 @@ stages ``synthesize_stage1`` and ``synthesize_stage2``.
 BatchNorm uses and updates batch statistics and dropout draws from ``rng``
 (a ``torch.Generator`` on the model's device); in eval mode both are off.
 The serving stages run under ``torch.no_grad()``.
+
+``dtype`` is the compute dtype (``nn/common.py``; float32, bfloat16 or
+float16), as the JAX model's: the encoder, the variance adaptor and the
+decoder run in it, the speaker embedding is cast to it, and ``mel_linear``
+and the postnet are float32 islands (float64 under ``.double()``).
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from torch import nn
 
 from ..config import FastSpeech2Config
 from ..device import resolve_device
-from ..nn.common import Embedding, Linear
+from ..nn.common import Embedding, Linear, compute_dtype, island
 from ..nn.postnet import Postnet
 from ..nn.variance import FeatureStats, VarianceAdaptor
 from ..ops import regulate_length, sequence_mask
@@ -33,7 +38,8 @@ class FastSpeech2(nn.Module):
 
     def __init__(self, config: FastSpeech2Config, n_symbols: int, n_speakers: int,
                  n_mel_channels: int, stats: FeatureStats, use_flash: bool = False, *,
-                 device=None, generator: Optional[torch.Generator] = None, seed: int = 0):
+                 device=None, generator: Optional[torch.Generator] = None, seed: int = 0,
+                 dtype=torch.float32):
         super().__init__()
         if not config.variance.duration_modelling.learn_alignment:
             raise NotImplementedError(
@@ -44,15 +50,17 @@ class FastSpeech2(nn.Module):
         self.config = config
         self.n_symbols = n_symbols
         self.n_mel_channels = n_mel_channels
-        self.encoder = build_encoder(config, n_symbols, use_flash, **kw)
-        self.decoder = build_decoder(config, use_flash, **kw)
+        self.dtype = compute_dtype(dtype)
+        self.encoder = build_encoder(config, n_symbols, use_flash, dtype=dtype, **kw)
+        self.decoder = build_decoder(config, use_flash, dtype=dtype, **kw)
         self.variance_adaptor = VarianceAdaptor(
             n_mel_channels, config.encoder_hidden, stats, config.variance.variance_predictor,
-            config.variance.variance_embedding, config.variance.duration_modelling, **kw)
+            config.variance.variance_embedding, config.variance.duration_modelling, dtype=dtype,
+            **kw)
         self.mel_linear = Linear(config.decoder_hidden, n_mel_channels, **kw)
         self.postnet = Postnet(n_mel_channels, config.postnet.embedding_dim,
                                config.postnet.conv_layers, config.postnet.kernel_size, **kw)
-        self.speaker_emb = Embedding(n_speakers, config.encoder_hidden, **kw)
+        self.speaker_emb = Embedding(n_speakers, config.encoder_hidden, dtype=dtype, **kw)
         self.eval()
 
     def forward(self, speakers, texts, txt_lens, mel, mel_lens, attn_prior, pitch_target,
@@ -73,7 +81,7 @@ class FastSpeech2(nn.Module):
                                    mel, mel_lens, attn_prior, pitch_target, energy_target, step,
                                    rng)
         dec, mel_mask = self.decoder(va["x"], va["mel_mask"], rng)
-        mel_out = self.mel_linear(dec.float())
+        mel_out = self.mel_linear(island(dec))
         postnet_out = self.postnet(mel_out, self.training, rng) + mel_out
         return {
             "mel": mel_out,
@@ -134,5 +142,5 @@ class FastSpeech2(nn.Module):
         mel_mask = sequence_mask(mel_lens, max_mel_len)
         x, _, _ = va.add_prosody(x, "frame_level", p_control=p_control, e_control=e_control)
         dec, _ = self.decoder(x, mel_mask)
-        mel = self.mel_linear(dec.float())
+        mel = self.mel_linear(island(dec))
         return self.postnet(mel) + mel, mel_lens

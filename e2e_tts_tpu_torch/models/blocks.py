@@ -5,7 +5,8 @@ other four families are queued in ROADMAP.md (A10).
     encoder(token_ids, mask, rng=None) -> (x, raw_embeddings)
     decoder(x, mask, rng=None) -> (x, mask)
 
-``rng`` is the dropout generator (None: deterministic).
+``rng`` is the dropout generator (None: deterministic); ``dtype`` the
+compute dtype (``nn/common.py``).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ def _check(cfg: FastSpeech2Config) -> None:
 
 
 def build_encoder(cfg: FastSpeech2Config, n_symbols: int, use_flash: bool = False, *,
-                  generator: torch.Generator, device=None):
+                  generator: torch.Generator, device=None, dtype=None):
     from ..nn.transformer import TransformerEncoder
 
     _check(cfg)
@@ -45,11 +46,12 @@ def build_encoder(cfg: FastSpeech2Config, n_symbols: int, use_flash: bool = Fals
         dropout=b.encoder_dropout,
         generator=generator,
         device=device,
+        dtype=dtype,
     )
 
 
 def build_decoder(cfg: FastSpeech2Config, use_flash: bool = False, *,
-                  generator: torch.Generator, device=None):
+                  generator: torch.Generator, device=None, dtype=None):
     from ..nn.transformer import TransformerDecoder
 
     _check(cfg)
@@ -64,4 +66,5 @@ def build_decoder(cfg: FastSpeech2Config, use_flash: bool = False, *,
         dropout=b.decoder_dropout,
         generator=generator,
         device=device,
+        dtype=dtype,
     )

@@ -14,10 +14,11 @@ from ..nn.hifigan import (HifiGanGenerator, IstftNetGenerator, TrainableHifiGan,
 
 
 def build_generator(config: Config, kind: str = "hifigan", train: bool = False, **kw):
-    """kind "hifigan" or "istft"; ``kw`` (device, generator, seed) go to the
-    module.  ``train``: the training form (weight norm as parameters,
-    autograd on; ``fuse_generator`` gives its serving form), on CUDA unless
-    ``device`` says otherwise; the serving form otherwise."""
+    """kind "hifigan" or "istft"; ``kw`` (device, generator, seed, and the
+    serving form's compute dtype) go to the module.  ``train``: the training
+    form (weight norm as parameters, autograd on; ``fuse_generator`` gives
+    its serving form), on CUDA unless ``device`` says otherwise; the serving
+    form otherwise."""
     if kind not in ("hifigan", "istft"):
         raise ValueError(f"unknown vocoder kind {kind!r}")
     cfg = config.models.hifigan if kind == "hifigan" else config.models.istft

@@ -4,6 +4,15 @@ Public modules take and return (B, T, C) like the JAX package; convolutions
 also offer ``conv_ncw`` for callers that keep (B, C, T) inside a stack.
 Parameters are created on ``device`` from an explicit ``torch.Generator``
 (on the CPU, so one seed gives the same weights on every device).
+
+``dtype`` is the compute type, as flax's: the parameters stay float32, and
+with ``torch.bfloat16`` or ``torch.float16`` a module computes with its
+input and its weights in that type (a product rounds once, the bias is
+added in the type, as flax's ``Dense`` and ``Conv``; ``cast_param`` keeps
+the cast weights while serving); ``LayerNorm`` takes its statistics in
+float32 and rounds the result.  With float32 (the default) nothing is cast,
+so a module computes in its parameters' own type: float32, or float64 after
+``.double()``.
 """
 
 from __future__ import annotations
@@ -15,6 +24,50 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+HALF = (torch.bfloat16, torch.float16)
+
+
+def compute_dtype(dtype) -> Optional[torch.dtype]:
+    """What a module casts its input and weights to: None (the parameters'
+    own type) for float32 or None, else the 16-bit ``dtype``."""
+    if dtype in (None, torch.float32):
+        return None
+    if dtype not in HALF:
+        raise TypeError(f"compute dtype must be float32, bfloat16 or float16, not {dtype}")
+    return dtype
+
+
+def cast(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``x`` in the compute dtype (unchanged for None)."""
+    return x if dtype is None else x.to(dtype)
+
+
+def cast_param(module: nn.Module, name: str) -> Optional[torch.Tensor]:
+    """The parameter ``name`` of ``module`` in its compute dtype.  Without
+    autograd (serving) the cast copy is kept and made again only when the
+    parameter changes (its storage or its version: a load or an in-place
+    update), so a request does not cast every weight anew; with autograd the
+    cast is made at each call, so that gradients reach the float32 parameter."""
+    p = getattr(module, name)
+    if p is None or module.dtype is None:
+        return p
+    if torch.is_grad_enabled():
+        return p.to(module.dtype)
+    key = (p.data_ptr(), p._version, module.dtype)
+    cache = module.__dict__.setdefault("_cast_cache", {})
+    hit = cache.get(name)
+    if hit is None or hit[0] != key:
+        hit = cache[name] = (key, p.detach().to(module.dtype))
+    return hit[1]
+
+
+def island(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in at least float32: the JAX package's float32 islands under a
+    16-bit compute dtype (``mel_linear``, the postnet, the vocoders' last
+    convolution); float64 stays float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def grad_scale(x: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -72,29 +125,48 @@ def _normal(shape, std: float, generator: torch.Generator, device) -> torch.Tens
     return (torch.randn(shape, generator=generator) * std).to(device)
 
 
+def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor], view=(-1,)) -> torch.Tensor:
+    return y if bias is None else y + bias.view(view)
+
+
 class Linear(nn.Linear):
     """Dense layer with lecun-normal weights and zero bias by default."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool = True, *,
-                 generator: torch.Generator, device=None, bias_init: float = 0.0):
+                 generator: torch.Generator, device=None, bias_init: float = 0.0, dtype=None):
         super().__init__(d_in, d_out, bias=bias, device=device)
+        self.dtype = compute_dtype(dtype)
         with torch.no_grad():
             self.weight.copy_(_normal((d_out, d_in), 1.0 / math.sqrt(d_in), generator, device))
             if bias:
                 self.bias.fill_(bias_init)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is None:
+            return super().forward(x)
+        y = F.linear(x.to(self.dtype), cast_param(self, "weight"))
+        return _add_bias(y, cast_param(self, "bias"))
+
 
 class Embedding(nn.Embedding):
-    """Lookup table with normal(std) rows; ``zero_row0`` zeroes the padding row."""
+    """Lookup table with normal(std) rows; ``zero_row0`` zeroes the padding
+    row.  The rows come out in ``dtype`` (flax looks them up in float32 and
+    its callers cast)."""
 
     def __init__(self, n: int, d: int, *, generator: torch.Generator, device=None,
-                 std: Optional[float] = None, zero_row0: bool = False):
+                 std: Optional[float] = None, zero_row0: bool = False, dtype=None):
         super().__init__(n, d, device=device)
+        self.dtype = compute_dtype(dtype)
         with torch.no_grad():
             w = _normal((n, d), 1.0 / math.sqrt(d) if std is None else std, generator, device)
             if zero_row0:
                 w[0] = 0.0
             self.weight.copy_(w)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.dtype is None:
+            return super().forward(ids)
+        return F.embedding(ids, cast_param(self, "weight"))
 
 
 class Conv1d(nn.Module):
@@ -104,9 +176,10 @@ class Conv1d(nn.Module):
 
     def __init__(self, d_in: int, d_out: int, kernel_size: int, dilation: int = 1,
                  bias: bool = True, *, generator: torch.Generator, device=None,
-                 std: Optional[float] = None):
+                 std: Optional[float] = None, dtype=None):
         super().__init__()
         self.dilation = dilation
+        self.dtype = compute_dtype(dtype)
         total = (kernel_size - 1) * dilation
         self.pad = (total // 2, total - total // 2)
         std = 1.0 / math.sqrt(d_in * kernel_size) if std is None else std
@@ -115,7 +188,11 @@ class Conv1d(nn.Module):
 
     def conv_ncw(self, x: torch.Tensor) -> torch.Tensor:
         """(B, C_in, T) -> (B, C_out, T)."""
-        return F.conv1d(F.pad(x, self.pad), self.weight, self.bias, dilation=self.dilation)
+        dt = self.dtype
+        if dt is None:
+            return F.conv1d(F.pad(x, self.pad), self.weight, self.bias, dilation=self.dilation)
+        y = F.conv1d(F.pad(x.to(dt), self.pad), cast_param(self, "weight"), dilation=self.dilation)
+        return _add_bias(y, cast_param(self, "bias"), (-1, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, C_in) -> (B, T, C_out)."""
@@ -127,16 +204,22 @@ class ConvTranspose1d(nn.Module):
     samples.  Weight (in, out, k), as torch's ``conv_transpose1d`` takes it."""
 
     def __init__(self, d_in: int, d_out: int, kernel_size: int, stride: int, *,
-                 generator: torch.Generator, device=None, std: float = 0.01):
+                 generator: torch.Generator, device=None, std: float = 0.01, dtype=None):
         super().__init__()
         self.stride = stride
+        self.dtype = compute_dtype(dtype)
         self.padding = (kernel_size - stride) // 2
         self.weight = nn.Parameter(_normal((d_in, d_out, kernel_size), std, generator, device))
         self.bias = nn.Parameter(torch.zeros(d_out, device=device))
 
     def conv_ncw(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose1d(x, self.weight, self.bias, stride=self.stride,
-                                  padding=self.padding)
+        dt = self.dtype
+        if dt is None:
+            return F.conv_transpose1d(x, self.weight, self.bias, stride=self.stride,
+                                      padding=self.padding)
+        y = F.conv_transpose1d(x.to(dt), cast_param(self, "weight"), stride=self.stride,
+                               padding=self.padding)
+        return _add_bias(y, cast_param(self, "bias"), (-1, 1))
 
 
 def same_padding(length: int, kernel_size: int, stride: int = 1, dilation: int = 1):
@@ -239,10 +322,22 @@ class WNConv2d(_WeightNorm):
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm over the feature axis with the eps passed in."""
+    """LayerNorm over the feature axis with the eps passed in.  In a 16-bit
+    ``dtype`` it is flax's: the statistics in float32 as E[x^2] - E[x]^2
+    (clamped at 0), scale and bias applied in float32, one rounding."""
 
-    def __init__(self, d: int, eps: float, device=None):
+    def __init__(self, d: int, eps: float, device=None, dtype=None):
         super().__init__(d, eps=eps, device=device)
+        self.dtype = compute_dtype(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is None:
+            return super().forward(x)
+        x = x.float()
+        mean = x.mean(dim=-1, keepdim=True)
+        var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(self.dtype)
 
 
 class BatchNorm(nn.Module):

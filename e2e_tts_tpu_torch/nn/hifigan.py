@@ -10,6 +10,10 @@ the serving form.  Both draw their weights in the same order from the same
 generator, so a training form fused at init is its seed's serving form.  The
 stack runs channels-first inside; the public ``forward`` takes
 (B, T, n_mels) like the JAX package.
+
+The serving form takes a compute ``dtype`` (``nn/common.py``), as the JAX
+generators do: the trunk runs in it, and ``conv_post`` with what follows is
+a float32 island (float64 under ``.double()``).
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import Conv1d, ConvTranspose1d, WNConv1d, WNConvTranspose1d, _WeightNorm
+from .common import (Conv1d, ConvTranspose1d, WNConv1d, WNConvTranspose1d, _WeightNorm,
+                     compute_dtype, island)
 
 LRELU_SLOPE = 0.1
 # the reference's final activation uses torch's default slope, not LRELU_SLOPE
@@ -32,11 +37,22 @@ def _lrelu(x, slope: float = LRELU_SLOPE):
     return F.leaky_relu(x, slope)
 
 
-def _conv(weight_norm: bool, d_in: int, d_out: int, kernel_size: int, dilation: int = 1, **kw):
-    """A stride-1 SAME convolution: weight-normalised (training) or plain (serving)."""
+def _conv(weight_norm: bool, d_in: int, d_out: int, kernel_size: int, dilation: int = 1,
+          dtype=None, **kw):
+    """A stride-1 SAME convolution: weight-normalised (training, float32) or
+    plain (serving, in ``dtype``)."""
     if weight_norm:
         return WNConv1d(d_in, d_out, kernel_size, dilation=dilation, **kw)
-    return Conv1d(d_in, d_out, kernel_size, dilation, std=WN_STD, **kw)
+    return Conv1d(d_in, d_out, kernel_size, dilation, std=WN_STD, dtype=dtype, **kw)
+
+
+def _generator_dtype(weight_norm: bool, dtype):
+    """A generator's compute dtype: the serving form's; the training form
+    computes in its parameters' type."""
+    if weight_norm and compute_dtype(dtype) is not None:
+        raise NotImplementedError("the training form computes in float32; mixed precision "
+                                  "training is queued (ROADMAP.md, Queue A, A14)")
+    return compute_dtype(dtype)
 
 
 class ResBlock1(nn.Module):
@@ -44,9 +60,9 @@ class ResBlock1(nn.Module):
 
     def __init__(self, channels: int, kernel_size: int = 3,
                  dilations: Sequence[int] = (1, 3, 5), *, generator, device=None,
-                 weight_norm: bool = False):
+                 weight_norm: bool = False, dtype=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.convs1 = nn.ModuleList(_conv(weight_norm, channels, channels, kernel_size, d, **kw)
                                     for d in dilations)
         self.convs2 = nn.ModuleList(_conv(weight_norm, channels, channels, kernel_size, 1, **kw)
@@ -64,9 +80,9 @@ class ResBlock2(nn.Module):
 
     def __init__(self, channels: int, kernel_size: int = 3,
                  dilations: Sequence[int] = (1, 3), *, generator, device=None,
-                 weight_norm: bool = False):
+                 weight_norm: bool = False, dtype=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.convs = nn.ModuleList(_conv(weight_norm, channels, channels, kernel_size, d, **kw)
                                    for d in dilations)
 
@@ -82,20 +98,20 @@ class _GeneratorTrunk(nn.Module):
     def __init__(self, n_mels: int, upsample_rates, upsample_kernel_sizes,
                  upsample_initial_channel: int, resblock_kernel_sizes,
                  resblock_dilation_sizes, resblock_type: int = 1, *, generator, device=None,
-                 weight_norm: bool = False):
+                 weight_norm: bool = False, dtype=None):
         super().__init__()
         kw = dict(generator=generator, device=device)
         Res = ResBlock1 if resblock_type == 1 else ResBlock2
-        self.conv_pre = _conv(weight_norm, n_mels, upsample_initial_channel, 7, **kw)
+        self.conv_pre = _conv(weight_norm, n_mels, upsample_initial_channel, 7, dtype=dtype, **kw)
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
         ch_in = upsample_initial_channel
         for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
             ch = upsample_initial_channel // (2 ** (i + 1))
             self.ups.append(WNConvTranspose1d(ch_in, ch, k, u, **kw) if weight_norm
-                            else ConvTranspose1d(ch_in, ch, k, u, std=WN_STD, **kw))
+                            else ConvTranspose1d(ch_in, ch, k, u, std=WN_STD, dtype=dtype, **kw))
             self.resblocks.append(nn.ModuleList(
-                Res(ch, rk, tuple(rd), weight_norm=weight_norm, **kw)
+                Res(ch, rk, tuple(rd), weight_norm=weight_norm, dtype=dtype, **kw)
                 for rk, rd in zip(resblock_kernel_sizes, resblock_dilation_sizes)))
             ch_in = ch
         self.out_channels = ch_in
@@ -124,7 +140,8 @@ class HifiGanGenerator(nn.Module):
                  resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11),
                  resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
                  resblock_type: int = 1, *, device=None,
-                 generator: Optional[torch.Generator] = None, seed: int = 0):
+                 generator: Optional[torch.Generator] = None, seed: int = 0,
+                 dtype=torch.float32):
         super().__init__()
         self.hparams = dict(n_mels=n_mels, upsample_rates=upsample_rates,
                             upsample_kernel_sizes=upsample_kernel_sizes,
@@ -132,12 +149,13 @@ class HifiGanGenerator(nn.Module):
                             resblock_kernel_sizes=resblock_kernel_sizes,
                             resblock_dilation_sizes=resblock_dilation_sizes,
                             resblock_type=resblock_type)
+        self.dtype = _generator_dtype(self.weight_norm, dtype)
         g = generator if generator is not None else torch.Generator().manual_seed(seed)
         kw = dict(generator=g, device=device)
         self.trunk = _GeneratorTrunk(n_mels, upsample_rates, upsample_kernel_sizes,
                                      upsample_initial_channel, resblock_kernel_sizes,
                                      resblock_dilation_sizes, resblock_type,
-                                     weight_norm=self.weight_norm, **kw)
+                                     weight_norm=self.weight_norm, dtype=dtype, **kw)
         self.conv_post = _conv(self.weight_norm, self.trunk.out_channels, 1, 7, **kw)
         if not self.weight_norm:
             self.eval()
@@ -151,7 +169,7 @@ class HifiGanGenerator(nn.Module):
 
     def generate(self, mel):
         x = self.trunk(mel.transpose(1, 2))
-        x = self.conv_post.conv_ncw(_lrelu(x, FINAL_SLOPE).float())
+        x = self.conv_post.conv_ncw(island(_lrelu(x, FINAL_SLOPE)))
         return torch.tanh(x)[:, 0, :]
 
     @torch.no_grad()
@@ -174,7 +192,8 @@ class IstftNetGenerator(nn.Module):
                  resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11),
                  resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
                  resblock_type: int = 1, *, device=None,
-                 generator: Optional[torch.Generator] = None, seed: int = 0):
+                 generator: Optional[torch.Generator] = None, seed: int = 0,
+                 dtype=torch.float32):
         super().__init__()
         self.hparams = dict(n_mels=n_mels, gen_istft_n_fft=gen_istft_n_fft,
                             upsample_rates=upsample_rates,
@@ -183,13 +202,14 @@ class IstftNetGenerator(nn.Module):
                             resblock_kernel_sizes=resblock_kernel_sizes,
                             resblock_dilation_sizes=resblock_dilation_sizes,
                             resblock_type=resblock_type)
+        self.dtype = _generator_dtype(self.weight_norm, dtype)
         g = generator if generator is not None else torch.Generator().manual_seed(seed)
         kw = dict(generator=g, device=device)
         self.n_fft = gen_istft_n_fft
         self.trunk = _GeneratorTrunk(n_mels, upsample_rates, upsample_kernel_sizes,
                                      upsample_initial_channel, resblock_kernel_sizes,
                                      resblock_dilation_sizes, resblock_type,
-                                     weight_norm=self.weight_norm, **kw)
+                                     weight_norm=self.weight_norm, dtype=dtype, **kw)
         self.conv_post = _conv(self.weight_norm, self.trunk.out_channels, gen_istft_n_fft + 2,
                                7, **kw)
         if not self.weight_norm:
@@ -204,7 +224,7 @@ class IstftNetGenerator(nn.Module):
                    tuple(tuple(d) for d in cfg.resblock_dilation_sizes), cfg.resblock, **kw)
 
     def generate(self, mel):
-        x = _lrelu(self.trunk(mel.transpose(1, 2)), FINAL_SLOPE).float()
+        x = island(_lrelu(self.trunk(mel.transpose(1, 2)), FINAL_SLOPE))
         # the reference's reflection pad (1, 0) on time: sample 1 in front
         x = torch.cat([x[..., 1:2], x], dim=-1)
         x = self.conv_post.conv_ncw(x)

@@ -2,7 +2,9 @@
 0.5 after each layer in training; the caller adds the residual (port of
 ``e2e_tts_tpu/nn/postnet.py``).  The BatchNorm follows flax's (eps 1e-5,
 running statistics moved by 0.99 / 0.01): batch statistics with ``train``,
-the running ones without."""
+the running ones without.  It has no compute dtype: the JAX model keeps it a
+float32 island under bfloat16 (``FastSpeech2`` hands it ``mel_linear``'s
+float32 output; float64 under ``.double()``)."""
 
 from __future__ import annotations
 

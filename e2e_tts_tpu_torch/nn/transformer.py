@@ -4,8 +4,16 @@ decoder (port of ``e2e_tts_tpu/nn/transformer.py``).
 Attention over T >= 256 with ``use_flash`` goes through the hand-written
 kernel (``kernels/flash_attention.py``) with heads folded into the batch;
 otherwise it is plain PyTorch with the pair mask at -1e9 and the softmax in
-float32.  The kernel is forward only: asking for it while autograd records
-raises, as the JAX package's does, and training runs the plain branch.
+float32.  In a 16-bit compute ``dtype`` (``nn/common.py``) the branches keep
+the JAX package's semantics: the kernel takes the 16-bit q, k and v and
+rounds once, at its output, as the Pallas kernel does; the plain branch
+rounds q k^T to the dtype, then divides by a float32 sqrt(d_k) (JAX promotes
+the 16-bit scores by the NumPy scalar) and takes the softmax in float32.
+Each residual sum enters its LayerNorm unrounded, in float32, as XLA
+compiles the JAX block (the add's rounding to the dtype folds away against
+LayerNorm's upcast).  The kernel is forward only: asking for it while
+autograd records raises, as the JAX package's does, and training runs the
+plain branch.
 Dropout (after ``fc`` and after ``w_2``) draws from the generator passed as
 ``rng``; ``rng=None`` is deterministic.  Masks are True = valid and multiply.
 """
@@ -19,7 +27,8 @@ import torch
 from torch import nn
 
 from ..kernels import flash_attention
-from .common import Conv1d, Embedding, LayerNorm, Linear, dropout, sinusoid_table
+from .common import (Conv1d, Embedding, LayerNorm, Linear, cast, compute_dtype, dropout, island,
+                     sinusoid_table)
 
 NEG_INF = -1e9
 FLASH_MIN_LEN = 256
@@ -27,18 +36,18 @@ FLASH_MIN_LEN = 256
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, d_model: int, n_head: int, use_flash: bool = False, dropout: float = 0.1,
-                 *, generator: torch.Generator, device=None):
+                 *, generator: torch.Generator, device=None, dtype=None):
         super().__init__()
         self.n_head = n_head
         self.dropout = dropout
         self.d_k = d_model // n_head
         self.use_flash = use_flash
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.w_q = Linear(d_model, n_head * self.d_k, **kw)
         self.w_k = Linear(d_model, n_head * self.d_k, **kw)
         self.w_v = Linear(d_model, n_head * self.d_k, **kw)
         self.fc = Linear(n_head * self.d_k, d_model, **kw)
-        self.layer_norm = LayerNorm(d_model, 1e-5, device=device)
+        self.layer_norm = LayerNorm(d_model, 1e-5, device=device, dtype=dtype)
 
     def forward(self, x, pair_mask, kv_lens=None, rng: Optional[torch.Generator] = None):
         B, T, _ = x.shape
@@ -58,34 +67,34 @@ class MultiHeadAttention(nn.Module):
             o = flash_attention(fold(q), fold(k), fold(v), lens)
             out = o.view(B, H, T, dk).permute(0, 2, 1, 3).reshape(B, T, H * dk)
         else:
-            scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(dk)
+            scores = island(torch.einsum("bqhd,bkhd->bhqk", q, k)) / np.sqrt(dk)
             scores = torch.where(pair_mask[:, None], scores, torch.full_like(scores, NEG_INF))
-            attn = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+            attn = torch.softmax(scores, dim=-1).to(v.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, T, H * dk)
-        return self.layer_norm(dropout(self.fc(out), self.dropout, rng) + x)
+        return self.layer_norm(island(dropout(self.fc(out), self.dropout, rng)) + island(x))
 
 
 class ConvFFN(nn.Module):
     def __init__(self, d_model: int, d_inner: int, kernel_sizes: Tuple[int, int] = (9, 1),
-                 dropout: float = 0.1, *, generator: torch.Generator, device=None):
+                 dropout: float = 0.1, *, generator: torch.Generator, device=None, dtype=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.dropout = dropout
         self.w_1 = Conv1d(d_model, d_inner, kernel_sizes[0], **kw)
         self.w_2 = Conv1d(d_inner, d_model, kernel_sizes[1], **kw)
-        self.layer_norm = LayerNorm(d_model, 1e-5, device=device)
+        self.layer_norm = LayerNorm(d_model, 1e-5, device=device, dtype=dtype)
 
     def forward(self, x, rng: Optional[torch.Generator] = None):
         h = self.w_2.conv_ncw(torch.relu(self.w_1.conv_ncw(x.transpose(1, 2))))
-        return self.layer_norm(dropout(h.transpose(1, 2), self.dropout, rng) + x)
+        return self.layer_norm(island(dropout(h.transpose(1, 2), self.dropout, rng)) + island(x))
 
 
 class FFTBlock(nn.Module):
     def __init__(self, d_model: int, n_head: int, d_inner: int,
                  kernel_sizes: Tuple[int, int] = (9, 1), use_flash: bool = False,
-                 dropout: float = 0.1, *, generator: torch.Generator, device=None):
+                 dropout: float = 0.1, *, generator: torch.Generator, device=None, dtype=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.slf_attn = MultiHeadAttention(d_model, n_head, use_flash, dropout, **kw)
         self.pos_ffn = ConvFFN(d_model, d_inner, kernel_sizes, dropout, **kw)
 
@@ -98,16 +107,19 @@ class FFTBlock(nn.Module):
 
 class _Positions:
     """Sinusoid positions cut from one cached table that grows on demand
-    (row p of the table does not depend on its length)."""
+    (row p of the table does not depend on its length), in the compute dtype
+    (float32 for None)."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, dtype=None):
         self.d_model = d_model
+        self.dtype = dtype
         self.table = None
 
     def __call__(self, T: int, device) -> torch.Tensor:
         if self.table is None or self.table.shape[0] < T or self.table.device != device:
             n = max(T, 0 if self.table is None else self.table.shape[0])
-            self.table = torch.from_numpy(sinusoid_table(max(n, 1), self.d_model)).to(device)
+            table = torch.from_numpy(sinusoid_table(max(n, 1), self.d_model))
+            self.table = cast(table, self.dtype).to(device)
         return self.table[:T]
 
 
@@ -118,15 +130,15 @@ class TransformerEncoder(nn.Module):
     def __init__(self, n_symbols: int, n_layers: int, d_model: int, n_head: int,
                  d_inner: int, kernel_sizes: Tuple[int, int] = (9, 1),
                  use_flash: bool = False, dropout: float = 0.1, *, generator: torch.Generator,
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.src_word_emb = Embedding(n_symbols + 1, d_model, std=1.0, zero_row0=True, **kw)
         self.layers = nn.ModuleList(
             FFTBlock(d_model, n_head, d_inner, kernel_sizes, use_flash, dropout, **kw)
             for _ in range(n_layers)
         )
-        self._pos = _Positions(d_model)
+        self._pos = _Positions(d_model, compute_dtype(dtype))
 
     def forward(self, token_ids, mask, rng: Optional[torch.Generator] = None):
         emb = self.src_word_emb(token_ids)
@@ -141,17 +153,17 @@ class TransformerDecoder(nn.Module):
 
     def __init__(self, n_layers: int, d_model: int, n_head: int, d_inner: int,
                  kernel_sizes: Tuple[int, int] = (9, 1), use_flash: bool = False,
-                 dropout: float = 0.1, *, generator: torch.Generator, device=None):
+                 dropout: float = 0.1, *, generator: torch.Generator, device=None, dtype=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.layers = nn.ModuleList(
             FFTBlock(d_model, n_head, d_inner, kernel_sizes, use_flash, dropout, **kw)
             for _ in range(n_layers)
         )
-        self._pos = _Positions(d_model)
+        self._pos = _Positions(d_model, compute_dtype(dtype))
 
     def forward(self, x, mask, rng: Optional[torch.Generator] = None):
-        x = (x + self._pos(x.shape[1], x.device)[None]) * mask[..., None]
+        x = (cast(x, self._pos.dtype) + self._pos(x.shape[1], x.device)[None]) * mask[..., None]
         for layer in self.layers:
             x = layer(x, mask, rng)
         return x, mask

@@ -6,6 +6,9 @@ Gaussian-distance aligner, and the adaptor's training branch (aligner -> MAS
 attention before ``binarization_start_steps``, hard after).
 
 Dropout draws from the generator passed as ``rng`` (None: deterministic).
+In a 16-bit compute ``dtype`` the predictors and the aligner run in it, and
+the prosody arithmetic follows the prediction's type as in JAX (the pitch
+and energy bins stay float32; the embeddings come out in the dtype).
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ from ..ops import (
     regulate_length,
     sequence_mask,
 )
-from .common import Conv1d, Embedding, LayerNorm, Linear, dropout, grad_scale, t2t_sinusoid
+from .common import (Conv1d, Embedding, LayerNorm, Linear, cast, compute_dtype, dropout,
+                     grad_scale, t2t_sinusoid)
 
 NEG_INF = -1e9
 
@@ -83,15 +87,15 @@ class ConvPredictorStack(nn.Module):
 
     def __init__(self, d_in: int, n_chans: int, n_layers: int, kernel_size: int, odim: int,
                  head_bias_init: float = 0.0, ln_eps: float = 1e-12, dropout: float = 0.5, *,
-                 generator: torch.Generator, device=None):
+                 generator: torch.Generator, device=None, dtype=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.dropout = dropout
         self.convs = nn.ModuleList(
             Conv1d(d_in if i == 0 else n_chans, n_chans, kernel_size, **kw)
             for i in range(n_layers)
         )
-        self.norms = nn.ModuleList(LayerNorm(n_chans, ln_eps, device=device)
+        self.norms = nn.ModuleList(LayerNorm(n_chans, ln_eps, device=device, dtype=dtype)
                                    for _ in range(n_layers))
         self.linear = Linear(n_chans, odim, bias_init=head_bias_init, **kw)
 
@@ -108,11 +112,11 @@ class DurationPredictor(nn.Module):
     between layers, LayerNorm eps 1e-12, head bias log(5 + 1)."""
 
     def __init__(self, d_in: int, n_chans: int, n_layers: int = 2, kernel_size: int = 3,
-                 dropout: float = 0.5, *, generator: torch.Generator, device=None):
+                 dropout: float = 0.5, *, generator: torch.Generator, device=None, dtype=None):
         super().__init__()
         self.stack = ConvPredictorStack(d_in, n_chans, n_layers, kernel_size, 1,
                                         head_bias_init=1.7918, ln_eps=1e-12, dropout=dropout,
-                                        generator=generator, device=device)
+                                        generator=generator, device=device, dtype=dtype)
 
     def forward(self, x, mask, rng: Optional[torch.Generator] = None):
         return (self.stack(x, mask, rng) * mask[..., None])[..., 0]
@@ -122,18 +126,22 @@ class VariancePredictor(nn.Module):
     """Pitch/energy predictor with t2t sinusoidal positions scaled by
     ``pos_alpha``.  Positions count every row whose features are not all
     zero; padded rows carry the speaker embedding by now, so they count
-    through the padding exactly as the JAX package and the reference do."""
+    through the padding exactly as the JAX package and the reference do.
+    The table is in the compute dtype; scaled by the float32 ``pos_alpha``
+    the sum is float32 until the first convolution casts it, as in JAX."""
 
     def __init__(self, d_in: int, n_chans: int, n_layers: int, kernel_size: int, odim: int,
-                 dropout: float = 0.5, *, generator: torch.Generator, device=None):
+                 dropout: float = 0.5, *, generator: torch.Generator, device=None, dtype=None):
         super().__init__()
+        self.dtype = compute_dtype(dtype)
         self.pos_alpha = nn.Parameter(torch.ones(1, device=device))
         self.stack = ConvPredictorStack(d_in, n_chans, n_layers, kernel_size, odim,
-                                        dropout=dropout, generator=generator, device=device)
+                                        dropout=dropout, generator=generator, device=device,
+                                        dtype=dtype)
 
     def forward(self, x, rng: Optional[torch.Generator] = None):
         T = x.shape[1]
-        pos = torch.from_numpy(t2t_sinusoid(T + 1, x.shape[-1])).to(x.device)
+        pos = cast(torch.from_numpy(t2t_sinusoid(T + 1, x.shape[-1])), self.dtype).to(x.device)
         nonpad = (x.abs().sum(-1) > 0).to(torch.int64)
         positions = torch.cumsum(nonpad, dim=1) * nonpad
         return self.stack(x + self.pos_alpha * pos[positions], None, rng)
@@ -147,9 +155,9 @@ class AlignmentEncoder(nn.Module):
     valid text positions."""
 
     def __init__(self, d_text: int, n_mels: int, n_att_channels: int, temperature: float, *,
-                 generator: torch.Generator, device=None):
+                 generator: torch.Generator, device=None, dtype=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.temperature = temperature
         self.key_spk_proj = Linear(d_text, d_text, bias=False, **kw)
         self.query_spk_proj = Linear(d_text, n_mels, bias=False, **kw)
@@ -186,11 +194,11 @@ class VarianceAdaptor(nn.Module):
     """Duration + phoneme- or frame-level pitch/energy, and the aligner."""
 
     def __init__(self, n_mel_channels: int, hidden_dim: int, stats: FeatureStats, vp, ve, dm, *,
-                 generator: torch.Generator, device=None):
+                 generator: torch.Generator, device=None, dtype=None):
         super().__init__()
         if vp.ffn_padding != "SAME":
             raise NotImplementedError("only SAME predictor padding is ported")
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.stats = stats
         self.predictor_grad = vp.predictor_grad
         self.use_uv = ve.use_uv

@@ -24,5 +24,7 @@ def f0_to_coarse(f0: torch.Tensor) -> torch.Tensor:
 
 def bucketize(x: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
     """Number of boundaries strictly below x: a value exactly ON a boundary
-    belongs to the LOWER bin (searchsorted side="left")."""
-    return torch.bucketize(x, boundaries, right=False, out_int32=True)
+    belongs to the LOWER bin (searchsorted side="left").  A 16-bit x is
+    compared in the boundaries' type, as ``jnp.searchsorted`` promotes it."""
+    dtype = torch.promote_types(x.dtype, boundaries.dtype)
+    return torch.bucketize(x.to(dtype), boundaries.to(dtype), right=False, out_int32=True)

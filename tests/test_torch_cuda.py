@@ -9,7 +9,11 @@ no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Bars: attention max error < 2e-5 on valid query rows, every row finite
-(kv_len = 0 included); log-mel MAE < 1e-4 and ``inverse_stft`` max < 1e-4
+(kv_len = 0 included); the 16-bit attention within one ulp of its output's
+dtype of the plain version (float32 on the upcast inputs, rounded once;
+``ulp_error``: near 0, float32's ulp at the largest |v|);
+a bfloat16 engine on CUDA against the same on the CPU: equal lengths, mean
+|diff| no more than the CPU's own bfloat16-against-float32 gap; log-mel MAE < 1e-4 and ``inverse_stft`` max < 1e-4
 against the CPU, and ``inverse_stft`` bit-equal run to run; the queue's
 results equal to a solo ``synthesize`` within 1 LSB on average; MAS
 bit-equal to its plain version; the CTC loss within 1e-5 relative and its
@@ -22,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from e2e_tts_tpu_torch.kernels.flash_attention import attention_plain, flash_attention
+from e2e_tts_tpu_torch.kernels.flash_attention import attention_plain, flash_attention, ulp_error
 
 pytestmark = pytest.mark.cuda
 
@@ -114,11 +118,80 @@ def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, kv)
     with pytest.raises(ValueError):  # CPU/CUDA mix
         flash_attention(q, k, v, kv.cpu())
-    with pytest.raises(TypeError):  # float32 only
-        flash_attention(q.half(), k.half(), v.half(), kv)
+    with pytest.raises(TypeError):  # float32, bfloat16 or float16 only
+        flash_attention(q.double(), k.double(), v.double(), kv)
+    with pytest.raises(TypeError):  # the three alike
+        flash_attention(q.half(), k.bfloat16(), v.half(), kv)
     with pytest.raises(ValueError):  # head dim past the kernel's 256
         big = torch.zeros(1, 8, 264, device=cuda)
         flash_attention(big, big, big, torch.tensor([8], dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("seed,BH,T,D,lens", CASES, ids=[f"{c[1]}x{c[2]}x{c[3]}" for c in CASES])
+def test_flash_kernel_16bit_matches_plain(cuda, dtype, seed, BH, T, D, lens):
+    """The 16-bit form on 16-bit inputs: its own launch count rises and the
+    float32 form's does not (no upcast into it); every valid element within
+    one ulp of the plain version (``ulp_error``); kv_len = 0 heads are zeros."""
+    q, k, v, kv = _inputs(seed, BH, T, D, lens, cuda)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    before = (flash_attention.launches, flash_attention.launches_16)
+    out = flash_attention(q, k, v, kv)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.launches_16) == (before[0], before[1] + 1)
+    assert out.dtype == dtype
+    ref = attention_plain(q, k, v, kv)
+    assert torch.isfinite(out.float()).all()
+    assert ulp_error(out, ref, v, kv) <= 1.0
+    for b, n in enumerate(lens):
+        if not n:
+            assert not out[b].float().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_flash_kernel_16bit_rows_past_kv_len(cuda, dtype):
+    lens = (957, 0, 4, 1152)
+    q, k, v, kv = _inputs(12, 4, 1152, 192, lens, cuda)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    out = flash_attention(q, k, v, kv)
+    torch.cuda.synchronize()
+    ref = attention_plain(q, k, v, kv)
+    assert torch.isfinite(out.float()).all()
+    assert not out[1].float().any()
+    assert not out[0, 960:].float().any() and not out[2, 16:].float().any()
+    assert ulp_error(out, ref, v, kv) <= 1.0
+
+
+
+def test_bf16_engine_on_cuda_matches_cpu(cuda):
+    """``vie_tiny`` in bfloat16 on the card (the 16-bit kernel, and no launch
+    of the float32 form) against the same bundle in bfloat16 and in float32
+    on the CPU, all on the card run's durations (``chip_smoke.duration_trace``;
+    the log-durations held to 2 x the bfloat16 model's own error): equal
+    lengths, and the card's mean |diff| from the CPU's bfloat16 no more than
+    the CPU's own bfloat16-against-float32 gap."""
+    import os
+
+    from chip_smoke import REQUESTS, duration_trace, log_duration_parity
+    from e2e_tts_tpu_torch.serve.engine import SynthesisEngine
+
+    bundle = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "assets", "bundles", "vie_tiny")
+    gpu = SynthesisEngine.from_checkpoint(bundle, device=cuda, dtype=torch.bfloat16)
+    text = REQUESTS[-1]  # long enough for the decoder's flash branch
+    before = (flash_attention.launches, flash_attention.launches_16)
+    with duration_trace(gpu) as trace:
+        out = gpu.synthesize(text)
+    assert flash_attention.launches == before[0] and flash_attention.launches_16 > before[1]
+    refs, traces = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        cpu = SynthesisEngine.from_checkpoint(bundle, device="cpu", dtype=dtype)
+        with duration_trace(cpu, trace) as traces[dtype]:
+            refs[dtype] = cpu.synthesize(text)
+    log_duration_parity("vie_tiny", trace, traces[torch.bfloat16], traces[torch.float32])
+    assert len(out) == len(refs[torch.bfloat16]) == len(refs[torch.float32])
+    diff = lambda a, b: np.abs(a.astype(np.int32) - b.astype(np.int32)).mean()  # noqa: E731
+    assert diff(out, refs[torch.bfloat16]) <= diff(refs[torch.bfloat16], refs[torch.float32])
 
 
 # --- audio ops and the queue on the card ------------------------------------------------

@@ -277,7 +277,13 @@ def test_port_imports_no_jax():
                "e2e_tts_tpu_torch.kernels.mas", "e2e_tts_tpu_torch.kernels.ctc",
                "e2e_tts_tpu_torch.models.acoustic_loss", "e2e_tts_tpu_torch.audio.features",
                "e2e_tts_tpu_torch.nn.discriminators", "e2e_tts_tpu_torch.train.vocoder_step",
-               "e2e_tts_tpu_torch.train.e2e_step", "e2e_tts_tpu_torch.train"]
+               "e2e_tts_tpu_torch.train.e2e_step", "e2e_tts_tpu_torch.train",
+               "e2e_tts_tpu_torch.nn.common", "e2e_tts_tpu_torch.nn.transformer",
+               "e2e_tts_tpu_torch.nn.variance", "e2e_tts_tpu_torch.nn.postnet",
+               "e2e_tts_tpu_torch.nn.hifigan", "e2e_tts_tpu_torch.models.blocks",
+               "e2e_tts_tpu_torch.models.acoustic", "e2e_tts_tpu_torch.models.vocoder",
+               "e2e_tts_tpu_torch.ops.pitch", "e2e_tts_tpu_torch.ops.length_regulator",
+               "e2e_tts_tpu_torch.audio.mel"]
     code = (f"import sys, {', '.join(modules)}\n"
             "from e2e_tts_tpu_torch.text.frontends import get_frontend\n"
             "[get_frontend(lang) for lang in ('vie', 'eng', 'mya')]\n"

@@ -72,6 +72,61 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         flash_attention(q, k, v, kv[:1])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_wrapper_takes_the_plain_version_on_cpu_in_16_bits(dtype):
+    """A 16-bit CPU tensor: the plain version on the upcast inputs, rounded
+    once to the input's dtype; no launch counted."""
+    q, k, v, kv = (t.to(dtype) if t.is_floating_point() else t
+                   for t in map(torch.from_numpy, _inputs(6, 2, 64, 24, (64, 10))))
+    before = (flash_attention.launches, flash_attention.launches_16)
+    out = flash_attention(q, k, v, kv)
+    assert out.dtype == dtype
+    assert torch.equal(out, attention_plain(q.float(), k.float(), v.float(), kv).to(dtype))
+    assert torch.equal(out, attention_plain(q, k, v, kv))
+    assert (flash_attention.launches, flash_attention.launches_16) == before
+
+
+def test_wrapper_rejects_mixed_dtypes():
+    q, k, v, kv = map(torch.from_numpy, _inputs(7, 2, 16, 8, (16, 3)))
+    for a, b in ((torch.bfloat16, torch.float16), (torch.float32, torch.bfloat16)):
+        with pytest.raises(TypeError):
+            flash_attention(q.to(a), k.to(b), v.to(a), kv)
+
+
+def test_16bit_inputs_bind_the_16bit_kernel(monkeypatch):
+    """No upcast: each dtype binds its own C entry point (the float32 form's
+    for float32, the 16-bit form's with its bfloat16 flag otherwise), as the
+    library is loaded at first CUDA use."""
+    import importlib
+
+    from e2e_tts_tpu_torch.kernels import build
+
+    fa = importlib.import_module("e2e_tts_tpu_torch.kernels.flash_attention")
+    calls = []
+
+    def entry(name):
+        def call(*args):
+            calls.append((name, args))
+            return 0
+        return call
+
+    lib = type("Lib", (), {n: staticmethod(entry(n)) for n in (
+        "flash_attention_workspace_floats", "flash_attention_fwd_f32",
+        "flash_attention_workspace_floats_16", "flash_attention_fwd_16")})()
+    monkeypatch.setattr(build, "library", lambda name: lib)
+    monkeypatch.setattr(fa, "_bound", None)
+    bound = fa._kernel()
+    for dtype, flag in ((torch.bfloat16, 1), (torch.float16, 0)):
+        ws, fwd = bound[dtype]
+        ws(4, 256, 192)
+        fwd(*range(6), 4, 256, 192, "stream")
+        assert calls[-2:] == [("flash_attention_workspace_floats_16", (4, 256, 192, flag)),
+                              ("flash_attention_fwd_16", (*range(6), 4, 256, 192, flag, "stream"))]
+    ws, fwd = bound[torch.float32]
+    fwd(*range(6), 4, 256, 192, "stream")
+    assert calls[-1] == ("flash_attention_fwd_f32", (*range(6), 4, 256, 192, "stream"))
+
+
 def test_kernel_sources_ship_with_the_module():
     from e2e_tts_tpu_torch.kernels import build
 
@@ -81,6 +136,11 @@ def test_kernel_sources_ship_with_the_module():
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
     assert "cp.async.cg.shared.global" in src
     assert "compute_90a,code=sm_90a" in " ".join(build.NVCC_FLAGS)
+    # the 16-bit form: m16n8k16 products in bfloat16 and float16, v by ldmatrix
+    assert src.count("flash_attention_fwd_16") and src.count("flash_attention_workspace_floats_16")
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32" in src
+    assert "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16" in src
 
 
 def _tf32(x):

@@ -129,23 +129,6 @@ def test_stream_synthesize_matches_jax_on_vie_tiny():
         list(stream_synthesize(peng, "xin chào", speaker_id="nope"))
 
 
-def test_stream_synthesize_splits_past_the_largest_mel_bucket():
-    """A chunk predicted past MAX_MEL_LEN is re-split (or duration-split), as
-    the JAX streamer does: the same length as the JAX package's."""
-    jeng, peng = _vie_tiny()
-    text = "xin chào việt nam hôm nay trời đẹp quá"
-    splits = []
-    real = peng._split_sequence
-    peng._split_sequence = lambda seq, total: splits.append(total) or real(seq, total)
-    try:
-        got = np.concatenate(list(stream_synthesize(peng, text, duration_control=16.0)))
-    finally:
-        del peng._split_sequence
-    want = np.concatenate(list(jax_stream_synthesize(jeng, text, duration_control=16.0)))
-    assert _lsb(got, want).mean() < 1.0
-    assert splits and splits[0] > 2048 and len(got) > 2048 * peng.hop_length
-
-
 # --- audio post and the Synthesizer ------------------------------------------------
 
 def test_change_speed_array_equals_jax():

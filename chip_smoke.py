@@ -14,7 +14,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the float32-FMA and the 3xTF32 tensor-core bound); attention also in
    bfloat16 and float16 (the kernel's 16-bit form, within one ulp of the
    plain version: ``ulp_error``; bound at the dense bf16 rate, 2 bytes an
-   element; SDPA in the same dtype); the training kernels (MAS, the CTC
+   element; SDPA in the same dtype), where both 16-bit kernels
+   (``flash_fwd_16_sm90`` where D % 8 == 0, and ``flash_fwd_16``), each
+   forced, are held to the plain version and timed in turns; every time is
+   the event time over back-to-back calls beside the device time per call
+   from ``torch.profiler`` (``device_ms``); the training kernels (MAS, the CTC
    forward and backward) at the training buckets (32, 128, 768) and (32, 256,
    1024), ragged, with edge rows;
 4. path parity: the default-width FastSpeech2 stages on CUDA (kernels)
@@ -63,7 +67,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
 14. joint e2e fine-tune: phase 12's model and batch with HiFi-GAN V1, MPD/MSD
    and aligned audio: one ``make_e2e_train_step`` step on CUDA against the
    CPU (4 rows, dropout 0, step 30000, the crop starts handed in: metrics,
-   and every gradient held to the float64 oracle as in phase 13); 5 timed
+   and every gradient held to the float64 oracle as in phase 13; the
+   acoustic activations' distance from float64, and each operation class
+   alone at encoder layer 0 on the float64 run's input: ``op_class_distances``); 5 timed
    steps (MAS and the
    CTC forward and backward once a step each, held to their plain versions
    on the steps' own inputs); one step under ``torch.profiler``;
@@ -74,22 +80,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
 16. bfloat16 serving: ``from_random(seed=0, dtype=torch.bfloat16)`` at default
    width, at batch 8 and 32, beside the float32 engine of the same batch
    (request seconds, RTF, a profile of the longest request each): the
-   16-bit kernel's launches must rise and the float32 form's stay 0, and it
-   is held to its plain version on the inputs it got; the longest request
+   launches of ``flash_fwd_16_sm90`` (the plan's kernel at heads of 192)
+   must rise and the float32 form's stay 0, and both 16-bit kernels are held
+   to the plain version on the inputs the path gave; the longest request
    against the CPU in bfloat16 and float32 on one set of durations (mean LSB
    no more than the CPU's own bf16-vs-f32 gap); ``stream_synthesize`` and 16
    callers through a ``BatchingServer`` over the bfloat16 engine;
 17. profile: one long request under ``torch.profiler`` (device busy share,
    the kernels that take most device time, the port's own kernels' time);
-18. a JSON line of every kernel (the flash kernel's float32 and 16-bit forms
-   apart), then the JSON result as the last line.
+18. a JSON line of every kernel (the flash kernel's float32 form and its two
+   16-bit kernels apart), then the JSON result as the last line.
 
 Each path that launches kernels (phases 5, 8, 9, 10, 11, 12, 14, 15 and 16) is driven
 with the launch counts set to 0 just before it and read just after, and each
 kernel is held against its plain version on the first inputs that path gave
 it (``recorded_inputs``, ``recorded_train_inputs``).  The kernels' JSON line
 counts the serving run's launches of flash attention (phase 5's of the
-float32 form, phase 16's batch-8 run's of the 16-bit form) and phases 12 and
+float32 form, phase 16's batch-8 run's of each 16-bit kernel) and phases 12 and
 14's of the training kernels.  From phase 6 on, the random
 vocoders run with their last convolution scaled so that the waveform is at a
 speaking level (``make_audible``): the random weights alone give well under
@@ -154,6 +161,31 @@ def time_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, tries: int = 3) -> float:
+    """Device time of one call of ``fn``: the durations of the kernels that
+    ``torch.profiler`` records over ``iters`` calls (after one warm-up call),
+    summed, over ``iters``.  Unlike ``time_ms`` over back-to-back calls, it
+    leaves out the host's cost per call, which sets the event time of a
+    small kernel.  A profiler run now and then records no kernel at
+    all; it is run again, up to ``tries`` times, and then this raises."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(tries):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if str(e.device_type).endswith("CUDA"))
+        if us > 0:
+            return us / iters / 1e3
+        log(f"device_ms: the profiler recorded no kernel (run {attempt + 1} of {tries})")
+    raise AssertionError(f"the profiler shows no device time in {tries} runs")
 
 
 # --- 1. environment ----------------------------------------------------------------
@@ -274,8 +306,14 @@ def check_attention_result(out, ref, v, kv, where: str) -> float:
 
 
 def check_attention():
-    """Each shape in float32, bfloat16 and float16 (the 16-bit form)."""
-    from e2e_tts_tpu_torch.kernels.flash_attention import attention_plain, flash_attention
+    """Each shape in float32, bfloat16 and float16.  In 16 bits both kernels
+    of the form, each forced, are held to the plain version and timed in
+    turns (mma_sync, sm90, sm90, mma_sync; ``flash_fwd_16_sm90`` only where
+    D % 8 == 0); ``kernel_ms``/``kernel_dev_ms`` time the kernel the plan
+    takes (``kernel``).  Every time is the event time over back-to-back calls
+    (``*_ms``) beside the device time per call (``*_dev_ms``)."""
+    from e2e_tts_tpu_torch.kernels.flash_attention import (
+        HALF, attention_plain, flash_attention, plan_kernel_16)
 
     g = torch.Generator().manual_seed(0)
     rows = []
@@ -292,13 +330,31 @@ def check_attention():
             torch.cuda.synchronize()
             ref = attention_plain(q, k, v, kv)
             err = check_attention_result(out, ref, v, kv, f"at {(BH, T, D)}")
+            call = lambda: flash_attention(q, k, v, kv)  # noqa: E731
+            library = lambda: sdpa(q, k, v, attn_mask=mask)  # noqa: E731
             row = dict(
                 shape=(BH, T, D), dtype=str(dtype).split(".")[-1], err=err,
                 ulp_error=attention_errors(out, ref, v, kv)[1],
-                kernel_ms=time_ms(lambda: flash_attention(q, k, v, kv)),
+                kernel_ms=time_ms(call), kernel_dev_ms=device_ms(call),
                 plain_ms=time_ms(lambda: attention_plain(q, k, v, kv)),
-                library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=mask)),
+                library_ms=time_ms(library), library_dev_ms=device_ms(library),
             )
+            if dtype in HALF:
+                row["kernel"] = plan_kernel_16(D)
+                names = ["mma_sync"] + (["sm90"] if D % 8 == 0 else [])
+                for name in names:
+                    out = flash_attention(q, k, v, kv, kernel=name)
+                    torch.cuda.synchronize()
+                    row[f"{name}_err"] = check_attention_result(out, ref, v, kv,
+                                                                f"({name}) at {(BH, T, D)}")
+                    row[f"{name}_ulp_error"] = attention_errors(out, ref, v, kv)[1]
+                times = {}
+                for name in names + names[::-1]:
+                    forced = lambda: flash_attention(q, k, v, kv, kernel=name)  # noqa: E731
+                    times.setdefault(name, []).append((time_ms(forced), device_ms(forced)))
+                for name, t in times.items():
+                    row[f"{name}_ms"] = float(np.mean([a for a, _ in t]))
+                    row[f"{name}_dev_ms"] = float(np.mean([b for _, b in t]))
             row.update(attention_bounds(D, lens) if dtype == torch.float32
                        else attention_bounds_16(D, lens))
             rows.append(row)
@@ -518,7 +574,7 @@ REQUESTS = (
 
 @contextlib.contextmanager
 def recorded_inputs():
-    """Set the launch counts (both forms') to 0 and route the model's kernel
+    """Set the launch counts (every kernel's) to 0 and route the model's kernel
     calls, from any thread, through a hook that keeps a copy of the first
     CUDA inputs at each shape; yields those inputs by shape, for
     ``check_serving_inputs``."""
@@ -534,7 +590,7 @@ def recorded_inputs():
         return flash_attention(q, k, v, kv_lens)
 
     transformer.flash_attention = recording
-    flash_attention.launches = flash_attention.launches_16 = 0
+    flash_attention.launches = flash_attention.launches_16 = flash_attention.launches_16_sm90 = 0
     try:
         yield seen
     finally:
@@ -579,21 +635,27 @@ def serve():
 
 def check_serving_inputs(seen, path: str = "serving") -> float:
     """The kernel against its plain version on the inputs that one path's
-    counted run gave it (``recorded_inputs``)."""
-    from e2e_tts_tpu_torch.kernels.flash_attention import attention_plain, flash_attention
+    counted run gave it (``recorded_inputs``); 16-bit inputs through each of
+    the form's kernels, forced (``flash_fwd_16_sm90`` where D % 8 == 0)."""
+    from e2e_tts_tpu_torch.kernels.flash_attention import HALF, attention_plain, flash_attention
 
     if not seen:
         raise AssertionError(f"the {path} run gave the kernel no CUDA inputs")
     worst = 0.0
     for shape, (q, k, v, kv) in sorted(seen.items()):
-        out = flash_attention(q, k, v, kv)
-        torch.cuda.synchronize()
         ref = attention_plain(q, k, v, kv)
-        err = check_attention_result(out, ref, v, kv, f"on {path} inputs {shape}")
-        ulp = attention_errors(out, ref, v, kv)[1]
-        log(f"flash_attention on {path} inputs {shape} {str(q.dtype)[6:]} kv_lens {kv.tolist()}: "
-            f"max err {err:.3g}" + ("" if ulp is None else f", {ulp:.3g} ulp (bar 1)"))
-        worst = max(worst, err)
+        kernels = [None]
+        if q.dtype in HALF:
+            kernels = (["sm90"] if shape[2] % 8 == 0 else []) + ["mma_sync"]
+        for kernel in kernels:
+            out = flash_attention(q, k, v, kv, kernel=kernel)
+            torch.cuda.synchronize()
+            name = "" if kernel is None else f" ({kernel})"
+            err = check_attention_result(out, ref, v, kv, f"on {path} inputs {shape}{name}")
+            ulp = attention_errors(out, ref, v, kv)[1]
+            log(f"flash_attention{name} on {path} inputs {shape} {str(q.dtype)[6:]} kv_lens "
+                f"{kv.tolist()}: max err {err:.3g}" + ("" if ulp is None else f", {ulp:.3g} ulp (bar 1)"))
+            worst = max(worst, err)
     return worst
 
 
@@ -1549,6 +1611,73 @@ FORWARD_PROBES = ("encoder.layers.0", "encoder.layers.5", "decoder.layers.5", "m
                   "postnet")
 
 
+# where phase 14 takes each operation class's input (the float64 run's own)
+OP_INPUTS = ("encoder.layers.0.slf_attn.w_q", "encoder.layers.0.slf_attn.layer_norm",
+             "encoder.layers.0.pos_ffn", "postnet.bns.0")
+
+
+def without_cudnn(fn):
+    """``fn()`` with cuDNN off."""
+    with torch.backends.cudnn.flags(enabled=False):
+        return fn()
+
+
+def op_class_distances(model, inputs, devices=("cuda", "cpu")) -> dict:
+    """Each operation class of the acoustic forward on its own: the input the
+    float64 run gave it (``inputs``, at encoder layer 0, and the postnet's
+    first BatchNorm in training mode), rounded to float32, through the op in
+    float32 on the card and on the CPU, against the same op in float64 on
+    the rounded input (relative norm of the difference).  So each distance
+    is the op's own arithmetic, not the error it was handed."""
+    named = dict(model.named_modules())
+    layer = "encoder.layers.0."
+    attn = named[layer + "slf_attn"]
+    H, dk = attn.n_head, attn.d_k
+
+    def on(name, device, dtype):
+        return copy.deepcopy(named[name]).to(device=device, dtype=dtype)
+
+    def scores(q, k):  # the plain branch's q k^T / sqrt(d_k), per head
+        B, T, _ = q.shape
+        return torch.einsum("bqhd,bkhd->bhqk", q.view(B, T, H, dk), k.view(B, T, H, dk)) / np.sqrt(dk)
+
+    x = inputs[layer + "slf_attn.w_q"].float().double()
+    with torch.no_grad():
+        q = on(layer + "slf_attn.w_q", "cpu", torch.float64)(x)
+        k = on(layer + "slf_attn.w_k", "cpu", torch.float64)(x)
+        s = scores(q, k)
+    ops = {  # name: (the op on a device in a dtype, its float64 input)
+        "linear (cuBLAS)": (lambda dev, dt: on(layer + "slf_attn.w_q", dev, dt), (x,)),
+        "q k^T (cuBLAS)": (lambda dev, dt: scores, (q, k)),
+        "attention softmax": (lambda dev, dt: lambda t: torch.softmax(t, dim=-1), (s,)),
+        "conv1d k=9 (cuDNN)": (
+            lambda dev, dt: lambda t, m=on(layer + "pos_ffn", dev, dt).w_1: m.conv_ncw(
+                t.transpose(1, 2)),
+            (inputs[layer + "pos_ffn"],)),
+        # the same convolution where cuDNN is off: PyTorch's own CUDA
+        # convolution (im2col and a cuBLAS product), the CPU's as it is
+        "conv1d k=9 (cuDNN off)": (
+            lambda dev, dt: lambda t, m=on(layer + "pos_ffn", dev, dt).w_1: without_cudnn(
+                lambda: m.conv_ncw(t.transpose(1, 2))),
+            (inputs[layer + "pos_ffn"],)),
+        "layernorm": (lambda dev, dt: on(layer + "slf_attn.layer_norm", dev, dt),
+                      (inputs[layer + "slf_attn.layer_norm"],)),
+        "batchnorm train (E[x^2] - E[x]^2)": (
+            lambda dev, dt: lambda t, m=on("postnet.bns.0", dev, dt): m(t, True),
+            (inputs["postnet.bns.0"],)),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, (op, args) in ops.items():
+            args = [a.float().double() for a in args]  # the float32 input, exactly
+            ref = op("cpu", torch.float64)(*args)
+            d = [float((op(dev, torch.float32)(*[a.float().to(dev) for a in args]).double().cpu()
+                        - ref).norm() / ref.norm()) for dev in devices]
+            out[name] = dict(card=float(f"{d[0]:.3g}"), cpu=float(f"{d[1]:.3g}"),
+                             card_over_cpu=float(f"{d[0] / max(d[1], 1e-30):.3g}"))
+    return out
+
+
 def first_tensor(out):
     """A module's output tensor (the first of a tuple)."""
     return out[0] if isinstance(out, tuple) else out
@@ -1566,6 +1695,7 @@ def e2e_parity(cfg, batch_np, audio, n_symbols: int, n_words: int) -> None:
                                               + 1)
 
     forward = []  # each run's acoustic activations at FORWARD_PROBES
+    op_inputs = {}  # the float64 run's inputs at OP_INPUTS
 
     def run(mods, device, dtype):
         state, step = e2e_step_fn(cfg, mods, n_words)
@@ -1580,7 +1710,14 @@ def e2e_parity(cfg, batch_np, audio, n_symbols: int, n_words: int) -> None:
                     acts[name] = first_tensor(out).detach().double().cpu()
             return hook
 
+        def keep_input(name):
+            def hook(module, args):  # returns None: the input is not replaced
+                op_inputs.setdefault(name, args[0].detach().clone())
+            return hook
+
         hooks = [named[n].register_forward_hook(keep(n)) for n in FORWARD_PROBES]
+        if dtype == torch.float64:
+            hooks += [named[n].register_forward_pre_hook(keep_input(n)) for n in OP_INPUTS]
         try:
             return step(state, to_dtype(batch, dtype), torch.from_numpy(starts).to(device))
         finally:
@@ -1594,6 +1731,8 @@ def e2e_parity(cfg, batch_np, audio, n_symbols: int, n_words: int) -> None:
     log("e2e forward vs float64 (the acoustic activations, relative norm) " + json.dumps(
         {n: dict(card=dist(card[n], exact[n]), cpu=dist(host[n], exact[n]))
          for n in FORWARD_PROBES}))
+    log("e2e op classes vs float64 (each op alone on the float64 run's input rounded to "
+        "float32, relative norm) " + json.dumps(op_class_distances(cpu[0], op_inputs)))
     errs = metrics_parity("e2e parity", out["cuda"][1], out["cpu"][1])
     grads = moments_parity("e2e parity", out, [
         (adam_names(cpu[0]), "am_opt_state", ZERO_BY_CONSTRUCTION),
@@ -1775,7 +1914,7 @@ def bf16_parity(eng, text: str) -> float:
     state and on the CUDA run's durations (``duration_trace``): the CUDA
     waveform's mean |diff| from the CPU bfloat16 one no more than the CPU's
     own bfloat16-against-float32 gap.  Returns that gap in LSB."""
-    from e2e_tts_tpu_torch.kernels.flash_attention import flash_attention
+    from e2e_tts_tpu_torch.kernels.flash_attention import launches_16
     from e2e_tts_tpu_torch.serve.engine import SynthesisEngine
 
     cpus = {dt: SynthesisEngine.from_random(seed=0, device="cpu", dtype=dt,
@@ -1785,10 +1924,10 @@ def bf16_parity(eng, text: str) -> float:
     for cpu in cpus.values():
         cpu.vocoder.load_state_dict(eng.vocoder.state_dict())  # the audible scale
         set_estimator(cpu, state)
-    before = flash_attention.launches_16
+    before = launches_16()
     with duration_trace(eng) as trace:
         out = eng.synthesize(text)
-    if flash_attention.launches_16 <= before:
+    if launches_16() <= before:
         raise AssertionError("the bf16 parity request never launched the 16-bit kernel")
     t0 = time.perf_counter()
     refs, traces = {}, {}
@@ -1817,17 +1956,36 @@ def bf16_parity(eng, text: str) -> float:
     return gap
 
 
+def flash_counts() -> dict:
+    """The flash kernels' launch counts: the float32 form's and each 16-bit
+    kernel's."""
+    from e2e_tts_tpu_torch.kernels.flash_attention import flash_attention
+
+    return {"flash_attention": flash_attention.launches,
+            "flash_attention_16": flash_attention.launches_16,
+            "flash_attention_16_sm90": flash_attention.launches_16_sm90}
+
+
+def check_flash_counts(counts: dict, what: str) -> None:
+    """A bfloat16 path at default width (heads of 192) launches the kernel
+    the plan takes there, ``flash_fwd_16_sm90``, and never the float32
+    form."""
+    if counts["flash_attention_16_sm90"] <= 0 or counts["flash_attention"] != 0:
+        raise AssertionError(f"{what} launched {counts}: flash_fwd_16_sm90 never, or the "
+                             "float32 form")
+
+
 def serve_bf16(f32_rows):
     """Phase 16: ``from_random(seed=0, dtype=torch.bfloat16)`` at default
     width, at batch 8 and 32, beside the float32 engine of the same batch,
-    the four requests in turns (the 16-bit kernel's launches must rise and
-    the float32 form's stay 0; the kernel held to its plain version on the
-    inputs it got); the longest request against the CPU (``bf16_parity``);
-    a profile of it; ``stream_synthesize`` and 16 callers through a
-    ``BatchingServer`` over the bfloat16 engine.  Returns (16-bit launches
-    of the counted batch-8 run, the kernel's worst error on the path's
+    the four requests in turns (``flash_fwd_16_sm90``'s launches must rise
+    and the float32 form's stay 0; both 16-bit kernels held to the plain
+    version on the inputs the path gave); the longest request against the
+    CPU (``bf16_parity``); a profile of it; ``stream_synthesize`` and 16
+    callers through a ``BatchingServer`` over the bfloat16 engine, each
+    checked as the engine.  Returns (the launch counts of the counted
+    batch-8 run, ``flash_counts``; the kernels' worst error on the paths'
     inputs)."""
-    from e2e_tts_tpu_torch.kernels.flash_attention import flash_attention
     from e2e_tts_tpu_torch.serve import BatchingServer, stream_synthesize
     from e2e_tts_tpu_torch.serve.engine import SynthesisEngine
 
@@ -1844,15 +2002,12 @@ def serve_bf16(f32_rows):
         with recorded_inputs() as seen:
             for text in REQUESTS:
                 engines["bf16"].synthesize(text)
-        counted = (flash_attention.launches, flash_attention.launches_16)
-        log(f"bf16 serve (batch {batch}): launches {{'flash_attention': {counted[0]}, "
-            f"'flash_attention_16': {counted[1]}}} in the four requests")
-        if counted[1] <= 0 or counted[0] != 0:
-            raise AssertionError(f"the bf16 serving run launched the 16-bit form {counted[1]} "
-                                 f"and the float32 form {counted[0]} times")
+        counted = flash_counts()
+        log(f"bf16 serve (batch {batch}): launches {json.dumps(counted)} in the four requests")
+        check_flash_counts(counted, f"the bf16 serving run (batch {batch})")
         errs.append(check_serving_inputs(seen, f"bf16 serving (batch {batch})"))
         if batch == BF16_BATCHES[0]:
-            launches = counted[1]
+            launches = counted
         set_estimator(engines["bf16"], state)
         rows = timed_requests(engines, f"bf16 vs f32 serve (batch {batch})")
         for name, eng in engines.items():
@@ -1877,8 +2032,8 @@ def serve_bf16(f32_rows):
             first = time.perf_counter() - t0 if first is None else first
             chunks.append(chunk)
         total = time.perf_counter() - t0
-    if flash_attention.launches_16 <= 0:
-        raise AssertionError("stream_synthesize over the bf16 engine never launched the kernel")
+    streamed_counts = flash_counts()
+    check_flash_counts(streamed_counts, "stream_synthesize over the bf16 engine")
     errs.append(check_serving_inputs(seen, "bf16 stream_synthesize"))
     streamed = np.concatenate(chunks)
     set_estimator(bf16, state)
@@ -1890,7 +2045,7 @@ def serve_bf16(f32_rows):
     log("bf16 stream_synthesize " + json.dumps(dict(
         chars=len(text), chunks=len(chunks), audio_s=round(len(streamed) / bf16.sample_rate, 3),
         first_chunk_s=round(first, 4), total_s=round(total, 4),
-        launches_16=flash_attention.launches_16, frames_vs_engine=frames)))
+        launches=streamed_counts, frames_vs_engine=frames)))
     if streamed.dtype != np.int16 or len(streamed) % bf16.hop_length or abs(frames) > MAX_TIES:
         raise AssertionError(f"bf16 stream_synthesize: {frames} frames from the engine's length")
 
@@ -1904,8 +2059,8 @@ def serve_bf16(f32_rows):
         serial_s = time.perf_counter() - t0
         with recorded_inputs() as seen:
             outs, queue_s, cycles = burst(srv, texts)
-        if flash_attention.launches_16 <= 0:
-            raise AssertionError("the bf16 queued run never launched the kernel")
+        queued_counts = flash_counts()
+        check_flash_counts(queued_counts, "the bf16 queued run")
         errs.append(check_serving_inputs(seen, "bf16 queue"))
         busy = device_busy(lambda: burst(srv, texts))
     # a request's rows share batches with other requests' (other product
@@ -1922,7 +2077,7 @@ def serve_bf16(f32_rows):
     audio_s = sum(len(a) for a in solo) / bf16.sample_rate
     log("bf16 queue " + json.dumps(dict(
         callers=N_CALLERS, audio_s=round(audio_s, 3), cycles=cycles, frames_moved=moved,
-        launches_16=flash_attention.launches_16, worst_mean_lsb_vs_solo=round(max(diffs), 4),
+        launches=queued_counts, worst_mean_lsb_vs_solo=round(max(diffs), 4),
         serial_s=round(serial_s, 4), queue_s=round(queue_s, 4),
         serial_audio_s_per_s=round(audio_s / serial_s, 3),
         queue_audio_s_per_s=round(audio_s / queue_s, 3),
@@ -2009,24 +2164,34 @@ def main() -> int:
     path_errs.append(bundle())
     log(f"bundle phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches_16, bf16_err = serve_bf16(serve_rows)
+    counts, bf16_err = serve_bf16(serve_rows)
     log(f"bf16 serving phase: {time.perf_counter() - t0:.1f} s")
     set_estimator(eng, state)
     profile(eng, REQUESTS[-1])
     kernels = []
-    for name, dtypes, n, errs in (
-            ("flash_attention", ("float32",), launches["flash_attention"], path_errs),
-            # the 16-bit form: timed in bfloat16, the serving dtype; its error in
-            # the dtype's values (within one ulp of the plain version, phase 3)
-            ("flash_attention_16", ("bfloat16", "float16"), launches_16, [bf16_err])):
-        rows = [r for r in attn if r["dtype"] in dtypes]
+    source = "e2e_tts_tpu_torch/kernels/csrc/flash_attention.cu"
+    for name, dtypes, prefix, src, n, errs in (
+            ("flash_attention", ("float32",), "kernel", source, launches["flash_attention"],
+             path_errs),
+            # the 16-bit kernels: timed in bfloat16, the serving dtype, forced
+            # in turns; the error in the dtype's values (within one ulp of the
+            # plain version, phase 3); launches in phase 16's batch-8 run,
+            # where the plan takes flash_fwd_16_sm90 (heads of 192): the
+            # mma.sync kernel runs there only where D % 8 != 0
+            ("flash_attention_16", ("bfloat16", "float16"), "mma_sync", source,
+             counts["flash_attention_16"], [bf16_err]),
+            ("flash_attention_16_sm90", ("bfloat16", "float16"), "sm90",
+             "e2e_tts_tpu_torch/kernels/csrc/flash_attention_sm90.cuh",
+             counts["flash_attention_16_sm90"], [bf16_err])):
+        rows = [r for r in attn if r["dtype"] in dtypes and f"{prefix}_ms" in r]
         main_row = next(r for r in rows if r["shape"] == (16, 2048, 192)
                         and r["dtype"] == dtypes[0])  # the decoder's largest bucket
         kernels.append(dict(
-            name=name, route="cuda", source="e2e_tts_tpu_torch/kernels/csrc/flash_attention.cu",
+            name=name, route="cuda", source=src,
             replaces="e2e_tts_tpu/kernels/flash_attention.py:106", launches=n,
-            max_abs_err=max(*errs, *(r["err"] for r in rows)),
-            ms=main_row["kernel_ms"], plain_ms=main_row["plain_ms"],
+            max_abs_err=max(*errs, *(r["err" if prefix == "kernel" else f"{prefix}_err"]
+                                     for r in rows)),
+            ms=main_row[f"{prefix}_ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"]))
     train_row = train_kernels[0]  # the training bucket of the phase 12 and 14 batch

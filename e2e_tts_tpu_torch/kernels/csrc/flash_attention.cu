@@ -86,12 +86,21 @@
 //   are free of bank conflicts; v's B fragments come by ldmatrix.trans.
 // - Fresh accumulators, the key split and flash_merge (writing 16 bits) as
 //   in the float32 form; the workspace stays float32.
+// Where D % 8 == 0 the launch plan takes a second 16-bit kernel instead,
+// flash_fwd_16_sm90 (flash_attention_sm90.cuh): TMA-fed tiles, wgmma, a
+// producer warpgroup (one lane starts the copies) and consumer warpgroups,
+// with the same arithmetic.
+// flash_fwd_16 stays for D % 8 != 0, whose rows TMA cannot address.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// Interface: plain C, loaded with ctypes: flash_attention_workspace_floats
-// (and _16) say how much workspace a call needs, flash_attention_fwd_f32 (and
-// flash_attention_fwd_16) launch and return cudaGetLastError().
+// (no -lcuda: cuTensorMapEncodeTiled is reached through
+// cudaGetDriverEntryPoint).  Interface: plain C, loaded with ctypes:
+// flash_attention_workspace_floats (and _16) say how much workspace a call
+// needs, flash_attention_kernel_16 which 16-bit kernel the plan takes,
+// flash_attention_fwd_f32 (and flash_attention_fwd_16) launch and return
+// cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -875,15 +884,18 @@ flash_fwd_16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     }
 }
 
+#include "flash_attention_sm90.cuh"
+
 // The three forms: float32 (flash_fwd_3xtf32), bfloat16 and float16 (flash_fwd_16)
 enum Form { F32 = 0, BF16 = 1, F16 = 2 };
 
-// How a call is cut: 16-row query groups a block (wq), warps a group (ks),
-// parts each head's key tiles are split into (nsplit), the kernel (by the
-// form, the output tiles a warp holds and ks), its dynamic shared memory,
-// and the workspace floats for the parts.
+// How a call is cut.  flash_fwd_3xtf32 and flash_fwd_16: 16-row query
+// groups a block (wq) and warps a group (ks).  flash_fwd_16_sm90 (sm90 = 1):
+// consumer warpgroups a block (wq), 64 rows each.  Then the parts each head's
+// key tiles are split into (nsplit), the keys of a tile (bkv), the kernel, its
+// threads and dynamic shared memory, and the workspace floats for the parts.
 struct Plan {
-    int wq, ks, nsplit;
+    int sm90, wq, ks, rows, threads, bkv, nsplit;
     const void* kernel;
     size_t smem, workspace;
 };
@@ -901,53 +913,86 @@ const void* kernel_of(int form, int ks) {
          : ks == 2 ? (const void*)flash_fwd_16<__half, DT, 4> : (const void*)flash_fwd_16<__half, DT, 8>;
 }
 
+template <typename E, int NWG>
+const void* sm90_kernel_of(int db) {
+    return db == 1 ? (const void*)flash_fwd_16_sm90<E, NWG, 1>
+         : db == 2 ? (const void*)flash_fwd_16_sm90<E, NWG, 2>
+         : db == 3 ? (const void*)flash_fwd_16_sm90<E, NWG, 3> : (const void*)flash_fwd_16_sm90<E, NWG, 4>;
+}
+
 // D padded to the products' depth (8 for m16n8k8 tf32, 16 for m16n8k16)
 int padded_dim(int form, int D) {
     const int step = form == F32 ? 8 : 16;
     return (D + step - 1) / step * step;
 }
 
-cudaError_t make_plan(int dev, int form, int BH, int T, int D, Plan& p) {
+// The 16-bit kernel a plan takes: flash_fwd_16_sm90 wherever TMA can address
+// the rows (D % 8 == 0), else flash_fwd_16
+int kernel_16_of(int D) { return D % 8 == 0 ? 1 : 0; }
+
+cudaError_t make_plan(int dev, int form, int BH, int T, int D, int sm90, Plan& p) {
     int sms = 0, smem_max = 0;
     cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
         err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return err;
-    // Query groups: the most (up to 8) that still give every SM a block and
-    // fit in shared memory.  The block's other warps split each group's key
-    // tiles (up to 4 warps a group), so that a block has 8 warps where it can.
-    const int dp = padded_dim(form, D);
-    const size_t esize = form == F32 ? sizeof(float) : 2;  // bytes an element in shared memory
-    const int ld = dp + (form == F32 ? 4 : 8);
-    const int bkv = form == F32 ? BKV : BKV16;
-    const int dt = dp <= 64 ? 8 : dp <= 128 ? 16 : dp <= 192 ? 24 : 32;
-    const auto split_of = [](int wq) { return MAX_WARPS / wq < 4 ? MAX_WARPS / wq : 4; };
-    const auto smem_bytes = [&](int wq) {
-        const size_t tiles = esize * 2 * STAGES * bkv * ld;
-        const size_t parts = sizeof(float) * wq * split_of(wq) * (4 * dt + 4) * 32;
-        return esize * 16 * wq * ld + (tiles > parts ? tiles : parts);
-    };
-    p.wq = MAX_WARPS;
-    while (p.wq > 1 && ((long long)BH * ((T + 16 * p.wq - 1) / (16 * p.wq)) < sms ||
-                        smem_bytes(p.wq) > (size_t)smem_max))
-        p.wq /= 2;
-    p.ks = split_of(p.wq);
-    p.smem = smem_bytes(p.wq);
-    p.kernel = dt == 8 ? kernel_of<8>(form, p.ks) : dt == 16 ? kernel_of<16>(form, p.ks)
-             : dt == 24 ? kernel_of<24>(form, p.ks) : kernel_of<32>(form, p.ks);
+    p.sm90 = sm90;
+    if (sm90) {
+        // two consumer warpgroups (128 rows) where that still gives every SM
+        // a block, else one
+        const int db = (D + BLOCK_COLS - 1) / BLOCK_COLS;
+        p.wq = (long long)BH * ((T + 2 * WG_ROWS - 1) / (2 * WG_ROWS)) >= sms ? 2 : 1;
+        p.ks = 1;
+        p.rows = WG_ROWS * p.wq;
+        p.threads = 128 * p.wq + 128;  // and the producer warpgroup
+        p.bkv = BN;
+        p.smem = sm90_smem_bytes(p.wq, db);
+        if (p.smem > (size_t)smem_max) return cudaErrorInvalidValue;
+        const bool bf16 = form == BF16;
+        p.kernel = p.wq == 2 ? (bf16 ? sm90_kernel_of<__nv_bfloat16, 2>(db) : sm90_kernel_of<__half, 2>(db))
+                             : (bf16 ? sm90_kernel_of<__nv_bfloat16, 1>(db) : sm90_kernel_of<__half, 1>(db));
+    } else {
+        // Query groups: the most (up to 8) that still give every SM a block
+        // and fit in shared memory.  The block's other warps split each
+        // group's key tiles (up to 4 warps a group), so that a block has 8
+        // warps where it can.
+        const int dp = padded_dim(form, D);
+        const size_t esize = form == F32 ? sizeof(float) : 2;  // bytes an element in shared memory
+        const int ld = dp + (form == F32 ? 4 : 8);
+        const int bkv = form == F32 ? BKV : BKV16;
+        const int dt = dp <= 64 ? 8 : dp <= 128 ? 16 : dp <= 192 ? 24 : 32;
+        const auto split_of = [](int wq) { return MAX_WARPS / wq < 4 ? MAX_WARPS / wq : 4; };
+        const auto smem_bytes = [&](int wq) {
+            const size_t tiles = esize * 2 * STAGES * bkv * ld;
+            const size_t parts = sizeof(float) * wq * split_of(wq) * (4 * dt + 4) * 32;
+            return esize * 16 * wq * ld + (tiles > parts ? tiles : parts);
+        };
+        p.wq = MAX_WARPS;
+        while (p.wq > 1 && ((long long)BH * ((T + 16 * p.wq - 1) / (16 * p.wq)) < sms ||
+                            smem_bytes(p.wq) > (size_t)smem_max))
+            p.wq /= 2;
+        p.ks = split_of(p.wq);
+        p.rows = 16 * p.wq;
+        p.threads = 32 * p.wq * p.ks;
+        p.bkv = bkv;
+        p.smem = smem_bytes(p.wq);
+        p.kernel = dt == 8 ? kernel_of<8>(form, p.ks) : dt == 16 ? kernel_of<16>(form, p.ks)
+                 : dt == 24 ? kernel_of<24>(form, p.ks) : kernel_of<32>(form, p.ks);
+    }
     // the device's limit, not this plan's size: plans share kernels
     err = cudaFuncSetAttribute(p.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
     int resident = 0;  // blocks an SM holds at once
     if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, p.kernel,
-                                                            32 * p.wq * p.ks, p.smem);
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, p.kernel, p.threads, p.smem);
     if (err != cudaSuccess) return err;
     // A block's key loop is serial, and serving pads most rows (its blocks past
     // kv_len return at once), so where the blocks are few against what the card
     // holds, each head's key tiles are cut into parts, a block each, at least
-    // MIN_SPLIT_TILES tiles of BKV keys a part, merged by flash_merge.
-    const long long blocks = (long long)BH * ((T + 16 * p.wq - 1) / (16 * p.wq));
-    const int by_len = (T + BKV * MIN_SPLIT_TILES - 1) / (BKV * MIN_SPLIT_TILES);
+    // MIN_SPLIT_TILES tiles of BKV keys (of BN keys for flash_fwd_16_sm90) a
+    // part, merged by flash_merge.
+    const long long blocks = (long long)BH * ((T + p.rows - 1) / p.rows);
+    const int keys = (sm90 ? BN : BKV) * MIN_SPLIT_TILES;
+    const int by_len = (T + keys - 1) / keys;
     const int by_card = (int)(SPLIT_LOAD * resident * sms / blocks + 0.5);
     p.nsplit = by_len < by_card ? by_len : by_card;
     p.nsplit = p.nsplit < 1 ? 1 : (p.nsplit > MAX_SPLIT ? MAX_SPLIT : p.nsplit);
@@ -955,61 +1000,74 @@ cudaError_t make_plan(int dev, int form, int BH, int T, int D, Plan& p) {
     return cudaSuccess;
 }
 
-// make_plan, once per (device, form, BH, T, D)
-cudaError_t plan_for(int form, int BH, int T, int D, Plan& p) {
+// make_plan, once per (device, form, BH, T, D, kernel); kernel -1 takes the
+// 16-bit form's default (kernel_16_of), 0 flash_fwd_16, 1 flash_fwd_16_sm90
+cudaError_t plan_for(int form, int BH, int T, int D, int kernel, Plan& p) {
     static std::mutex mu;
-    static std::map<std::tuple<int, int, int, int, int>, Plan> plans;
+    static std::map<std::tuple<int, int, int, int, int, int>, Plan> plans;
+    const int sm90 = form == F32 ? 0 : kernel < 0 ? kernel_16_of(D) : kernel;
+    if (sm90 && (D % 8 != 0 || kernel > 1)) return cudaErrorInvalidValue;
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
-    const auto key = std::make_tuple(dev, form, BH, T, D);
+    const auto key = std::make_tuple(dev, form, BH, T, D, sm90);
     std::lock_guard<std::mutex> lock(mu);
     const auto it = plans.find(key);
     if (it != plans.end()) {
         p = it->second;
         return cudaSuccess;
     }
-    err = make_plan(dev, form, BH, T, D, p);
+    err = make_plan(dev, form, BH, T, D, sm90, p);
     if (err == cudaSuccess) plans.emplace(key, p);
     return err;
 }
 
-long long workspace_floats(int form, int BH, int T, int D) {
+long long workspace_floats(int form, int BH, int T, int D, int kernel) {
     Plan p;
     if (BH <= 0 || T <= 0 || D <= 0 || D > 256) return 0;
-    return plan_for(form, BH, T, D, p) == cudaSuccess ? (long long)p.workspace : -1;
+    return plan_for(form, BH, T, D, kernel, p) == cudaSuccess ? (long long)p.workspace : -1;
 }
 
 int launch(int form, const void* q, const void* k, const void* v, const void* kv_lens, void* out,
-           void* workspace, int BH, int T, int D, void* stream) {
+           void* workspace, int BH, int T, int D, int kernel, void* stream) {
     if (BH <= 0 || T <= 0 || D <= 0 || D > 256 || BH > 65535) return (int)cudaErrorInvalidValue;
     Plan p;
-    cudaError_t err = plan_for(form, BH, T, D, p);
+    cudaError_t err = plan_for(form, BH, T, D, kernel, p);
     if (err != cudaSuccess) return (int)err;
     if (p.workspace > 0 && workspace == nullptr) return (int)cudaErrorInvalidValue;
     const auto aligned = [](const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0; };
-    // 16-byte copies: 4 floats or 8 16-bit elements a row's step
-    int vec = D % (form == F32 ? 4 : 8) == 0 && aligned(q) && aligned(k) && aligned(v);
-    int dp = padded_dim(form, D);
     float scale_log2 = (float)(LOG2E / sqrt((double)D));
     const int* lens = static_cast<const int*>(kv_lens);
     float* ws = static_cast<float*>(workspace);
     auto s = static_cast<cudaStream_t>(stream);
-    const dim3 grid((T + 16 * p.wq - 1) / (16 * p.wq), BH, p.nsplit);
-    void* args[] = {&q, &k, &v, &lens, &out, &ws, &T, &D, &dp, &scale_log2, &vec};
-    err = cudaLaunchKernel(p.kernel, grid, dim3(32 * p.wq * p.ks), args, p.smem, s);
+    const dim3 grid((T + p.rows - 1) / p.rows, BH, p.nsplit);
+    if (p.sm90) {  // TMA reads 16-byte aligned rows of the three tensors
+        if (!(aligned(q) && aligned(k) && aligned(v))) return (int)cudaErrorMisalignedAddress;
+        CUtensorMap maps[3];
+        const void* src[3] = {q, k, v};
+        for (int i = 0; i < 3 && err == cudaSuccess; ++i)
+            err = tensor_map(&maps[i], src[i], form == BF16, BH, T, D, i == 0 ? p.rows : BN);
+        if (err != cudaSuccess) return (int)err;
+        void* args[] = {&maps[0], &maps[1], &maps[2], &lens, &out, &ws, &T, &D, &scale_log2};
+        err = cudaLaunchKernel(p.kernel, grid, dim3(p.threads), args, p.smem, s);
+    } else {
+        // 16-byte copies: 4 floats or 8 16-bit elements a row's step
+        int vec = D % (form == F32 ? 4 : 8) == 0 && aligned(q) && aligned(k) && aligned(v);
+        int dp = padded_dim(form, D);
+        void* args[] = {&q, &k, &v, &lens, &out, &ws, &T, &D, &dp, &scale_log2, &vec};
+        err = cudaLaunchKernel(p.kernel, grid, dim3(p.threads), args, p.smem, s);
+    }
     if (err == cudaSuccess) err = cudaGetLastError();
     if (err != cudaSuccess || p.nsplit == 1) return (int)err;
     const dim3 mgrid((T + 7) / 8, BH);
-    const int bkv = form == F32 ? BKV : BKV16;
     if (form == F32)
-        flash_merge<<<mgrid, 256, 0, s>>>(ws, lens, static_cast<float*>(out), p.nsplit, T, D, bkv,
+        flash_merge<<<mgrid, 256, 0, s>>>(ws, lens, static_cast<float*>(out), p.nsplit, T, D, p.bkv,
                                           scale_log2);
     else if (form == BF16)
         flash_merge<<<mgrid, 256, 0, s>>>(ws, lens, static_cast<__nv_bfloat16*>(out), p.nsplit, T,
-                                          D, bkv, scale_log2);
+                                          D, p.bkv, scale_log2);
     else
-        flash_merge<<<mgrid, 256, 0, s>>>(ws, lens, static_cast<__half*>(out), p.nsplit, T, D, bkv,
+        flash_merge<<<mgrid, 256, 0, s>>>(ws, lens, static_cast<__half*>(out), p.nsplit, T, D, p.bkv,
                                           scale_log2);
     return (int)cudaGetLastError();
 }
@@ -1019,7 +1077,7 @@ int launch(int form, const void* q, const void* k, const void* v, const void* kv
 // Floats of device workspace that flash_attention_fwd_f32 needs for these
 // sizes on the current device (0: none), or -1 on a CUDA error.
 extern "C" long long flash_attention_workspace_floats(int BH, int T, int D) {
-    return workspace_floats(F32, BH, T, D);
+    return workspace_floats(F32, BH, T, D, -1);
 }
 
 // q, k, v, out: contiguous (BH, T, D) float32 on the device; kv_lens: (BH,)
@@ -1029,18 +1087,26 @@ extern "C" long long flash_attention_workspace_floats(int BH, int T, int D) {
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
                                        const void* kv_lens, void* out, void* workspace,
                                        int BH, int T, int D, void* stream) {
-    return launch(F32, q, k, v, kv_lens, out, workspace, BH, T, D, stream);
+    return launch(F32, q, k, v, kv_lens, out, workspace, BH, T, D, -1, stream);
 }
 
-// The 16-bit form's workspace floats: bf16 1 for bfloat16, 0 for float16.
-extern "C" long long flash_attention_workspace_floats_16(int BH, int T, int D, int bf16) {
-    return workspace_floats(bf16 ? BF16 : F16, BH, T, D);
+// The 16-bit kernel the plan takes for heads of D: 1 flash_fwd_16_sm90, 0
+// flash_fwd_16.
+extern "C" int flash_attention_kernel_16(int D) { return kernel_16_of(D); }
+
+// The 16-bit form's workspace floats: bf16 1 for bfloat16, 0 for float16;
+// kernel -1 the plan's, 0 flash_fwd_16, 1 flash_fwd_16_sm90.
+extern "C" long long flash_attention_workspace_floats_16(int BH, int T, int D, int bf16,
+                                                         int kernel) {
+    return workspace_floats(bf16 ? BF16 : F16, BH, T, D, kernel);
 }
 
 // As flash_attention_fwd_f32 with q, k, v and out in bfloat16 (bf16 1) or
-// float16 (bf16 0); the workspace is float32.
+// float16 (bf16 0), the workspace float32, and the kernel as in
+// flash_attention_workspace_floats_16 (flash_fwd_16_sm90 needs D % 8 == 0 and
+// 16-byte aligned q, k, v).
 extern "C" int flash_attention_fwd_16(const void* q, const void* k, const void* v,
                                       const void* kv_lens, void* out, void* workspace, int BH,
-                                      int T, int D, int bf16, void* stream) {
-    return launch(bf16 ? BF16 : F16, q, k, v, kv_lens, out, workspace, BH, T, D, stream);
+                                      int T, int D, int bf16, int kernel, void* stream) {
+    return launch(bf16 ? BF16 : F16, q, k, v, kv_lens, out, workspace, BH, T, D, kernel, stream);
 }

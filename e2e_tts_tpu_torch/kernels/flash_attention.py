@@ -17,15 +17,31 @@ each, merged by a second small kernel; the wrapper allocates the workspace the
 parts need (see the source's header).
 
 The Pallas kernel takes blocks of any float dtype, upcasts them and rounds
-once, at the output.  So the source has a 16-bit form too (``flash_fwd_16``,
-bfloat16 or float16 in and out): both products on the tensor cores in the
-input's type (m16n8k16, float32 accumulators), one product for q k^T (a
-product of two 16-bit values is exact in float32) and two for p v, with p
-split into a 16-bit hi and lo part so that it keeps float32 accuracy; the
-scores, the softmax and the accumulator stay float32.  A 16-bit CUDA tensor
-launches that form, never the float32 one on upcast inputs; its launches
-count in ``flash_attention.launches_16``, the float32 form's in
-``flash_attention.launches``.
+once, at the output.  So the source has a 16-bit form too (bfloat16 or
+float16 in and out) that keeps the scores, the softmax and the accumulator in
+float32: one product for q k^T (a product of two 16-bit values is exact in
+float32) and three for p v, with p split into three 16-bit parts so that it
+keeps float32 accuracy.  That form is bound by the dense 16-bit tensor rate,
+at twice the nominal work (the p parts), and has two kernels:
+
+- ``flash_fwd_16_sm90`` (``csrc/flash_attention_sm90.cuh``), where D % 8 == 0
+  (every shipped voice): one lane of a producer warpgroup loads the Q tile
+  and a two-stage ring of 64-key K/V tiles by TMA (``mbarrier``s, the
+  128-byte swizzle), and one or two consumer warpgroups of 64 query rows run
+  ``wgmma``: q k^T from shared memory, p v with p's parts from registers;
+  ``setmaxnreg`` moves the producer's registers to the consumers.  On the
+  H100 it is bound by the tensor rate at twice the nominal work, and it is
+  faster than ``flash_fwd_16`` at every measured shape (``PERF.md``).
+  TMA needs 16-byte aligned rows, so a misaligned view is copied first.
+  Launches count in ``flash_attention.launches_16_sm90``.
+- ``flash_fwd_16`` (``mma.sync`` m16n8k16, a ``cp.async`` ring), for D % 8 != 0.
+  Launches count in ``flash_attention.launches_16``.
+
+The launch plan (per device, form and shape) picks the kernel
+(``flash_attention_kernel_16``); ``kernel="sm90"`` or ``"mma_sync"`` forces
+one, for the card's checks.  A 16-bit CUDA tensor launches one of them,
+never the float32 form on upcast inputs, and never the other kernel when one
+fails.
 
 ``flash_attention`` is the one entry point.  A CPU tensor goes to
 ``attention_plain`` (a 16-bit input upcast, the result rounded to its
@@ -56,8 +72,10 @@ HALF = (torch.bfloat16, torch.float16)
 
 
 def _kernel():
-    """{form: (workspace_floats, fwd)}: the library's C entry points, the
-    16-bit ones with their ``bf16`` flag bound."""
+    """{form: (workspace_floats, fwd)} and {"kernel_16": the plan's 16-bit
+    kernel}: the library's C entry points, the 16-bit ones with their
+    ``bf16`` flag bound and the kernel (-1 the plan's, 0 ``flash_fwd_16``, 1
+    ``flash_fwd_16_sm90``) as an argument before the stream."""
     global _bound
     with _LOCK:
         if _bound is None:
@@ -71,15 +89,18 @@ def _kernel():
             fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             fwd.restype = ctypes.c_int
             ws16 = lib.flash_attention_workspace_floats_16
-            ws16.argtypes = [ctypes.c_int] * 4
+            ws16.argtypes = [ctypes.c_int] * 5
             ws16.restype = ctypes.c_longlong
             fwd16 = lib.flash_attention_fwd_16
-            fwd16.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fwd16.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
             fwd16.restype = ctypes.c_int
-            _bound = {torch.float32: (ws, fwd)}
+            which = lib.flash_attention_kernel_16
+            which.argtypes = [ctypes.c_int]
+            which.restype = ctypes.c_int
+            _bound = {torch.float32: (ws, fwd), "kernel_16": which}
             for dtype, flag in ((torch.bfloat16, 1), (torch.float16, 0)):
-                _bound[dtype] = (lambda BH, T, D, f=flag: ws16(BH, T, D, f),
-                                 lambda *a, f=flag: fwd16(*a[:-1], f, a[-1]))
+                _bound[dtype] = (lambda BH, T, D, kern, f=flag: ws16(BH, T, D, f, kern),
+                                 lambda *a, f=flag: fwd16(*a[:-2], f, *a[-2:]))
         return _bound
 
 
@@ -134,9 +155,14 @@ def ulp_error(out, ref, v, kv_lens) -> float:
     return worst
 
 
-def flash_attention(q, k, v, kv_lens):
+KERNELS_16 = {"mma_sync": 0, "sm90": 1}  # the 16-bit form's kernels, by the C side's number
+_COUNTERS_16 = ("launches_16", "launches_16_sm90")
+
+
+def flash_attention(q, k, v, kv_lens, *, kernel: str | None = None):
     """(BH, T, D) q, k, v of one dtype (float32, bfloat16 or float16) and
-    (BH,) int kv_lens -> (BH, T, D) in that dtype."""
+    (BH,) int kv_lens -> (BH, T, D) in that dtype.  ``kernel`` ("sm90" or
+    "mma_sync", 16-bit CUDA inputs only) overrides the plan's kernel."""
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (BH, T, D) shape: {q.shape}, {k.shape}, {v.shape}")
     BH, T, D = q.shape
@@ -145,6 +171,8 @@ def flash_attention(q, k, v, kv_lens):
     if len({q.dtype, k.dtype, v.dtype}) != 1 or q.dtype not in (torch.float32, *HALF):
         raise TypeError("flash_attention takes float32, bfloat16 or float16, the three alike; "
                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
+    if kernel is not None and (kernel not in KERNELS_16 or q.dtype not in HALF):
+        raise ValueError(f"kernel={kernel!r}: one of {sorted(KERNELS_16)}, for 16-bit inputs")
     devices = {t.device for t in (q, k, v, kv_lens)}
     if len(devices) != 1:
         raise ValueError(f"q, k, v and kv_lens must lie on one device, got {devices}")
@@ -156,22 +184,50 @@ def flash_attention(q, k, v, kv_lens):
         raise ValueError("flash_attention needs contiguous q, k, v")
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {D} outside 1..{MAX_HEAD_DIM}")
-    lens = kv_lens.to(torch.int32).contiguous()
+    return _launch(q, k, v, kv_lens.to(torch.int32).contiguous(), kernel)
+
+
+def _launch(q, k, v, lens, kernel):
+    """One launch on q's device (the checks done): the plan's 16-bit kernel
+    unless ``kernel`` names one, the workspace it needs, and the count of the
+    kernel launched."""
+    BH, T, D = q.shape
     out = torch.empty_like(q)
-    workspace_floats, fwd = _kernel()[q.dtype]
+    bound = _kernel()
+    workspace_floats, fwd = bound[q.dtype]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        n = workspace_floats(BH, T, D)  # where the kernel splits each head's keys
+        if q.dtype in HALF:
+            kern = bound["kernel_16"](D) if kernel is None else KERNELS_16[kernel]
+            if kern == KERNELS_16["sm90"]:  # TMA reads 16-byte aligned rows
+                q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+            args = (BH, T, D, kern)
+        else:
+            args = (BH, T, D)
+        n = workspace_floats(*args)  # where the kernel splits each head's keys
         if n < 0:
-            raise RuntimeError("flash_attention: the CUDA device could not be queried")
+            raise RuntimeError(f"flash_attention: no launch plan for {(BH, T, D)} on this device "
+                               "(a CUDA error, or the forced kernel takes no such head width)")
         ws = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
         err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                  ws.data_ptr() if n else None, BH, T, D, stream)
+                  ws.data_ptr() if n else None, *args, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
-    _count_launch("launches_16" if q.dtype in HALF else "launches")
+    _count_launch(_COUNTERS_16[kern] if q.dtype in HALF else "launches")
     return out
 
 
 flash_attention.launches = 0  # the float32 form's
-flash_attention.launches_16 = 0  # the 16-bit form's (bfloat16 and float16)
+flash_attention.launches_16 = 0  # the 16-bit form's flash_fwd_16 (bfloat16 and float16)
+flash_attention.launches_16_sm90 = 0  # the 16-bit form's flash_fwd_16_sm90
+
+
+def plan_kernel_16(D: int) -> str:
+    """The 16-bit kernel the launch plan takes for heads of D ("sm90" or
+    "mma_sync"), as the library says (needs the CUDA library)."""
+    return {n: name for name, n in KERNELS_16.items()}[_kernel()["kernel_16"](D)]
+
+
+def launches_16() -> int:
+    """Launches of either 16-bit kernel."""
+    return flash_attention.launches_16 + flash_attention.launches_16_sm90

@@ -9,7 +9,8 @@ no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Bars: attention max error < 2e-5 on valid query rows, every row finite
-(kv_len = 0 included); the 16-bit attention within one ulp of its output's
+(kv_len = 0 included); the 16-bit attention (both its kernels,
+``flash_fwd_16_sm90`` and ``flash_fwd_16``) within one ulp of its output's
 dtype of the plain version (float32 on the upcast inputs, rounded once;
 ``ulp_error``: near 0, float32's ulp at the largest |v|);
 a bfloat16 engine on CUDA against the same on the CPU: equal lengths, mean
@@ -26,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import ATTN_SHAPES
 from e2e_tts_tpu_torch.kernels.flash_attention import attention_plain, flash_attention, ulp_error
 
 pytestmark = pytest.mark.cuda
@@ -127,18 +129,26 @@ def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         flash_attention(big, big, big, torch.tensor([8], dtype=torch.int32, device=cuda))
 
 
+def _counts():
+    return (flash_attention.launches, flash_attention.launches_16,
+            flash_attention.launches_16_sm90)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
 @pytest.mark.parametrize("seed,BH,T,D,lens", CASES, ids=[f"{c[1]}x{c[2]}x{c[3]}" for c in CASES])
 def test_flash_kernel_16bit_matches_plain(cuda, dtype, seed, BH, T, D, lens):
-    """The 16-bit form on 16-bit inputs: its own launch count rises and the
-    float32 form's does not (no upcast into it); every valid element within
-    one ulp of the plain version (``ulp_error``); kv_len = 0 heads are zeros."""
+    """The 16-bit form on 16-bit inputs: the launch count of the kernel the
+    plan takes rises (``flash_fwd_16_sm90`` where D % 8 == 0, else
+    ``flash_fwd_16``) and no other (no upcast into the float32 form); every
+    valid element within one ulp of the plain version (``ulp_error``);
+    kv_len = 0 heads are zeros."""
     q, k, v, kv = _inputs(seed, BH, T, D, lens, cuda)
     q, k, v = (t.to(dtype) for t in (q, k, v))
-    before = (flash_attention.launches, flash_attention.launches_16)
+    before = _counts()
     out = flash_attention(q, k, v, kv)
     torch.cuda.synchronize()
-    assert (flash_attention.launches, flash_attention.launches_16) == (before[0], before[1] + 1)
+    sm90 = D % 8 == 0
+    assert _counts() == (before[0], before[1] + (not sm90), before[2] + sm90)
     assert out.dtype == dtype
     ref = attention_plain(q, k, v, kv)
     assert torch.isfinite(out.float()).all()
@@ -162,6 +172,62 @@ def test_flash_kernel_16bit_rows_past_kv_len(cuda, dtype):
     assert ulp_error(out, ref, v, kv) <= 1.0
 
 
+# chip_smoke.ATTN_SHAPES with D % 8 == 0 (all of them), and edges: kv_len 0
+# and 1, rows past kv_len, D of 16 to 256, T not a multiple of the tiles
+SM90_SHAPES = [s for s in ATTN_SHAPES if s[2] % 8 == 0] + [
+    (3, 200, 16, (200, 1, 0)), (3, 333, 128, (333, 64, 65)), (3, 500, 256, (500, 129, 7)),
+    (2, 130, 64, (1, 130)), (64, 1024, 192, (1024, 800, 555, 3) * 16)]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("BH,T,D,lens", SM90_SHAPES, ids=[f"{s[0]}x{s[1]}x{s[2]}" for s in SM90_SHAPES])
+def test_flash_sm90_and_mma_sync_hold_the_bar(cuda, BH, T, D, lens, dtype, seed):
+    """Both 16-bit kernels, each forced, within one ulp of the plain version;
+    only the forced kernel's count rises; rows past kv_len finite, kv_len = 0
+    heads zeros."""
+    q, k, v, kv = _inputs(100 * seed + D, BH, T, D, lens, cuda)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    ref = attention_plain(q, k, v, kv)
+    for kernel, counter in (("sm90", 2), ("mma_sync", 1)):
+        before = _counts()
+        out = flash_attention(q, k, v, kv, kernel=kernel)
+        torch.cuda.synchronize()
+        assert _counts() == tuple(n + (i == counter) for i, n in enumerate(before)), kernel
+        assert torch.isfinite(out.float()).all(), kernel
+        assert ulp_error(out, ref, v, kv) <= 1.0, kernel
+        for b, n in enumerate(lens):
+            if not n:
+                assert not out[b].float().any(), kernel
+
+
+def test_flash_16bit_plan_sends_odd_head_dims_to_mma_sync(cuda):
+    """D % 8 != 0 (rows TMA cannot address): the plan takes flash_fwd_16,
+    and forcing flash_fwd_16_sm90 there raises."""
+    q, k, v, kv = _inputs(31, 2, 300, 100, (300, 17), cuda)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    before = _counts()
+    out = flash_attention(q, k, v, kv)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0], before[1] + 1, before[2])
+    assert ulp_error(out, attention_plain(q, k, v, kv), v, kv) <= 1.0
+    with pytest.raises(RuntimeError):
+        flash_attention(q, k, v, kv, kernel="sm90")
+
+
+def test_flash_sm90_takes_a_misaligned_view(cuda):
+    """A contiguous view 2 bytes past an aligned start reaches the TMA kernel
+    as an aligned copy, with the same result as the aligned tensor."""
+    q, k, v, kv = _inputs(32, 2, 256, 64, (256, 100), cuda)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    buf = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    buf[1:].copy_(q.flatten())
+    view = buf[1:].view(q.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    out = flash_attention(view, k, v, kv, kernel="sm90")
+    assert torch.equal(out, flash_attention(q, k, v, kv, kernel="sm90"))
+
+
 
 def test_bf16_engine_on_cuda_matches_cpu(cuda):
     """``vie_tiny`` in bfloat16 on the card (the 16-bit kernel, and no launch
@@ -179,10 +245,12 @@ def test_bf16_engine_on_cuda_matches_cpu(cuda):
                           "assets", "bundles", "vie_tiny")
     gpu = SynthesisEngine.from_checkpoint(bundle, device=cuda, dtype=torch.bfloat16)
     text = REQUESTS[-1]  # long enough for the decoder's flash branch
-    before = (flash_attention.launches, flash_attention.launches_16)
+    before = _counts()
     with duration_trace(gpu) as trace:
         out = gpu.synthesize(text)
-    assert flash_attention.launches == before[0] and flash_attention.launches_16 > before[1]
+    # the bundle's heads are 24 wide: flash_fwd_16_sm90
+    after = _counts()
+    assert after[:2] == before[:2] and after[2] > before[2]
     refs, traces = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         cpu = SynthesisEngine.from_checkpoint(bundle, device="cpu", dtype=dtype)

@@ -95,8 +95,8 @@ def test_wrapper_rejects_mixed_dtypes():
 
 def test_16bit_inputs_bind_the_16bit_kernel(monkeypatch):
     """No upcast: each dtype binds its own C entry point (the float32 form's
-    for float32, the 16-bit form's with its bfloat16 flag otherwise), as the
-    library is loaded at first CUDA use."""
+    for float32, the 16-bit form's with its bfloat16 flag and the kernel
+    otherwise), as the library is loaded at first CUDA use."""
     import importlib
 
     from e2e_tts_tpu_torch.kernels import build
@@ -112,16 +112,21 @@ def test_16bit_inputs_bind_the_16bit_kernel(monkeypatch):
 
     lib = type("Lib", (), {n: staticmethod(entry(n)) for n in (
         "flash_attention_workspace_floats", "flash_attention_fwd_f32",
-        "flash_attention_workspace_floats_16", "flash_attention_fwd_16")})()
+        "flash_attention_workspace_floats_16", "flash_attention_fwd_16",
+        "flash_attention_kernel_16")})()
     monkeypatch.setattr(build, "library", lambda name: lib)
     monkeypatch.setattr(fa, "_bound", None)
     bound = fa._kernel()
     for dtype, flag in ((torch.bfloat16, 1), (torch.float16, 0)):
         ws, fwd = bound[dtype]
-        ws(4, 256, 192)
-        fwd(*range(6), 4, 256, 192, "stream")
-        assert calls[-2:] == [("flash_attention_workspace_floats_16", (4, 256, 192, flag)),
-                              ("flash_attention_fwd_16", (*range(6), 4, 256, 192, flag, "stream"))]
+        for kern in (0, 1):
+            ws(4, 256, 192, kern)
+            fwd(*range(6), 4, 256, 192, kern, "stream")
+            assert calls[-2:] == [
+                ("flash_attention_workspace_floats_16", (4, 256, 192, flag, kern)),
+                ("flash_attention_fwd_16", (*range(6), 4, 256, 192, flag, kern, "stream"))]
+    bound["kernel_16"](192)
+    assert calls[-1] == ("flash_attention_kernel_16", (192,))
     ws, fwd = bound[torch.float32]
     fwd(*range(6), 4, 256, 192, "stream")
     assert calls[-1] == ("flash_attention_fwd_f32", (*range(6), 4, 256, 192, "stream"))

@@ -88,16 +88,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
    callers through a ``BatchingServer`` over the bfloat16 engine;
 17. profile: one long request under ``torch.profiler`` (device busy share,
    the kernels that take most device time, the port's own kernels' time);
-18. a JSON line of every kernel (the flash kernel's float32 form and its two
+18. corpus to voice: a synthetic corpus (2 speakers x 24 sentences, f0
+   jitter 0.1, seed 0) through the port's data preparation, its features on
+   the card held to the same on the CPU (log-mel MAE and energy at phase 7's
+   bars, f0 and pitch equal), bucketed batches of 16, phase 12's parity on
+   the first corpus batch, 10 default-width train steps on the corpus
+   batches (MAS and the CTC kernels once a step, held to their plain
+   versions on the steps' inputs), a checkpoint after step 5 restored into
+   a fresh model (Adam moments bit-equal; step 6 within the train bars), 2
+   HiFi-GAN V1 GAN steps with MPD/MSD on corpus batches of 16 x 8192
+   samples, the trained models written as a bundle and served on the card
+   against the CPU (1 LSB mean); the preparation rate, the batcher's host
+   ms a batch against the step ms at each bucket, and the checkpoint's
+   save and restore ms, each beside the card's name and power limit; then
+   ROADMAP C5: the std of ``vie_tiny``'s decoder attention logits on a
+   golden text, and the 16-bit kernels' ulp error on those inputs
+   (measured, not a bar);
+19. a JSON line of every kernel (the flash kernel's float32 form and its two
    16-bit kernels apart), then the JSON result as the last line.
 
-Each path that launches kernels (phases 5, 8, 9, 10, 11, 12, 14, 15 and 16) is driven
+Each path that launches kernels (phases 5, 8, 9, 10, 11, 12, 14, 15, 16 and 18) is driven
 with the launch counts set to 0 just before it and read just after, and each
 kernel is held against its plain version on the first inputs that path gave
 it (``recorded_inputs``, ``recorded_train_inputs``).  The kernels' JSON line
 counts the serving run's launches of flash attention (phase 5's of the
-float32 form, phase 16's batch-8 run's of each 16-bit kernel) and phases 12 and
-14's of the training kernels.  From phase 6 on, the random
+float32 form, phase 16's batch-8 run's of each 16-bit kernel) and phases 12,
+14 and 18's of the training kernels.  From phase 6 on, the random
 vocoders run with their last convolution scaled so that the waveform is at a
 speaking level (``make_audible``): the random weights alone give well under
 1 LSB.
@@ -145,6 +161,7 @@ CTC_GRAD_TOL = 1e-5  # CTC kernel gradient max |diff| against the plain one, x m
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 MAS_TIE = 1e-2     # durations may differ only where a MAS decision on the path is this close
+RELU_TIE = 1e-4    # a relu may decide otherwise only where its input is this close to 0, x max |input|
 
 
 def log(msg: str) -> None:
@@ -1111,13 +1128,58 @@ def mas_margin(attn_soft, tl: int, ml: int, path) -> float:
     return min(gaps, default=float("inf"))
 
 
+@contextlib.contextmanager
+def relu_calls(record=None, replay=None):
+    """Route ``torch.relu`` (the models' call) through a hook: with ``record``
+    (a list), append each call's input, detached, on the CPU; with
+    ``replay`` (such a list from another run), take each call's decision
+    from it: ``x * (recorded x > 0)``, the same branch of the function."""
+    real = torch.relu
+    calls = iter(replay or ())
+
+    def hooked(x):
+        if record is not None:
+            record.append(x.detach().cpu())
+        if replay is not None:
+            return x * (next(calls) > 0).to(x.device, x.dtype)
+        return real(x)
+
+    torch.relu = hooked
+    try:
+        yield
+    finally:
+        torch.relu = real
+
+
+def relu_ties(cuda_inputs, cpu_inputs) -> dict:
+    """Where the CUDA run's relus decided otherwise than the CPU run's on the
+    same call: each such input must lie within RELU_TIE x its call's largest
+    |input| of 0 (a tie), else this raises.  Returns the count and the
+    largest margin."""
+    if len(cuda_inputs) != len(cpu_inputs):
+        raise AssertionError(f"relu calls: {len(cuda_inputs)} on CUDA, {len(cpu_inputs)} on the CPU")
+    flips, margin = 0, 0.0
+    for xg, xc in zip(cuda_inputs, cpu_inputs):
+        differ = (xg > 0) != (xc > 0)
+        if differ.any():
+            m = float(xc[differ].abs().max() / xc.abs().max().clamp(min=1e-30))
+            flips, margin = flips + int(differ.sum()), max(margin, m)
+            if not m < RELU_TIE:
+                raise AssertionError(f"train parity: a relu decides otherwise on CUDA at an input "
+                                     f"{m:.3g} x its call's largest from 0 (tie bar {RELU_TIE})")
+    return dict(relu_flips=flips, relu_worst_margin=float(f"{margin:.3g}"))
+
+
 def train_parity(cfg, batch_np, n_symbols: int, n_words: int) -> None:
     """One step's forward and backward on CUDA against the same on the CPU:
     the first rows of the batch, the same weights, dropout 0, step 30000 (hard
     expansion, the bin term at full weight).  Loss terms and each parameter's
     gradient within TRAIN_LOSS_RTOL / TRAIN_GRAD_RTOL; durations equal, or
     the CPU step is rerun with the CUDA alignment where a MAS decision was a
-    tie (within MAS_TIE)."""
+    tie (within MAS_TIE); every relu's decision equal, or the CPU step is
+    rerun with the CUDA run's decisions where an input was a tie (within
+    RELU_TIE of 0: a single flipped relu moves the gradient of every layer
+    below it by ~1e-3, as a MAS tie moves durations)."""
     import e2e_tts_tpu_torch.nn.variance as variance
     from e2e_tts_tpu_torch.train import AcousticBatch, build_acoustic_model
 
@@ -1128,11 +1190,16 @@ def train_parity(cfg, batch_np, n_symbols: int, n_words: int) -> None:
     b_c, b_g = AcousticBatch.from_numpy(rows, "cpu"), AcousticBatch.from_numpy(rows, "cuda")
     for m in (cpu, gpu):
         m.train()
-    out_g, loss_g = forward_losses(gpu, cfg, b_g, step, n_words, torch.Generator("cuda"))
+    relu_g, relu_c = [], []
+    with relu_calls(record=relu_g):
+        out_g, loss_g = forward_losses(gpu, cfg, b_g, step, n_words, torch.Generator("cuda"))
     loss_g["total"].backward()
     t0 = time.perf_counter()
-    out_c, loss_c = forward_losses(cpu, cfg, b_c, step, n_words, torch.Generator())
+    with relu_calls(record=relu_c):
+        out_c, loss_c = forward_losses(cpu, cfg, b_c, step, n_words, torch.Generator())
+    ties = relu_ties(relu_g, relu_c)
     d_c, d_g = out_c["duration_rounded"], out_g["duration_rounded"].cpu()
+    real_align = variance.monotonic_align
     if not torch.equal(d_c, d_g):
         hard_g = out_g["attn_hard"].cpu()
         for b in sorted({int(i) for i in (d_c != d_g).nonzero()[:, 0]}):
@@ -1142,12 +1209,13 @@ def train_parity(cfg, batch_np, n_symbols: int, n_words: int) -> None:
                 f"path {margin:.4g} (tie bar {MAS_TIE})")
             if not margin < MAS_TIE:
                 raise AssertionError(f"train parity: durations differ off a MAS tie in row {b}")
-        real = variance.monotonic_align
         variance.monotonic_align = lambda *a: hard_g  # the CUDA alignment into the CPU step
+    if variance.monotonic_align is not real_align or ties["relu_flips"]:
         try:
-            out_c, loss_c = forward_losses(cpu, cfg, b_c, step, n_words, torch.Generator())
+            with relu_calls(replay=relu_g):  # the CUDA run's relu decisions into the CPU step
+                out_c, loss_c = forward_losses(cpu, cfg, b_c, step, n_words, torch.Generator())
         finally:
-            variance.monotonic_align = real
+            variance.monotonic_align = real_align
     loss_c["total"].backward()
     cpu_s = time.perf_counter() - t0
     worst = {}
@@ -1169,7 +1237,7 @@ def train_parity(cfg, batch_np, n_symbols: int, n_words: int) -> None:
     err, name = max(grad_errs)
     log("train parity " + json.dumps(dict(
         rows=PARITY_ROWS, step=step, cpu_s=round(cpu_s, 2),
-        durations_equal=bool(torch.equal(d_c, d_g)),
+        durations_equal=bool(torch.equal(d_c, d_g)), **ties,
         loss_rel_err={k: float(f"{v:.3g}") for k, v in worst.items()},
         worst_grad_rel_err=float(f"{err:.3g}"), worst_grad=name, grad_tensors=len(grad_errs))))
     if not err < TRAIN_GRAD_RTOL:
@@ -2138,8 +2206,351 @@ def profile(eng, text: str) -> None:
         top=[dict(name=k[0][:90], ms=k[1], n=k[2]) for k in kernels[:10]])))
 
 
+# --- 18. corpus to voice ---------------------------------------------------------------------
+
+CORPUS_SENTENCES = 24  # x the synthetic corpus's 2 speakers
+CORPUS_B = 16
+CORPUS_STEPS = 10
+CKPT_STEP = 5  # the checkpoint: saved after this many steps, restored into a fresh model
+VOC_CORPUS_STEPS = 2
+GOLDEN = "xin chào việt nam"  # C5: vie_tiny's decoder logits on this text
+
+
+def decoder_logits(eng, text: str):
+    """Serve ``text`` and return, per decoder layer of the engine's acoustic
+    model, the std and max |.| of the self-attention logits
+    q k^T / sqrt(d_k) over the valid (query, key) pairs, and the layer's
+    (q, k, v, kv_lens) folded as the flash kernel takes them (B * H, T, d_k)."""
+    layers = []
+
+    def hook(mod, args):
+        x, pair_mask, kv_lens = args[0], args[1], args[2]
+        B, T, _ = x.shape
+        H, dk = mod.n_head, mod.d_k
+        with torch.no_grad():
+            q, k, v = (w(x).view(B, T, H, dk).float() for w in (mod.w_q, mod.w_k, mod.w_v))
+            s = torch.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(dk)
+            valid = s[pair_mask[:, None].expand_as(s)]
+
+            def fold(t):
+                return t.permute(0, 2, 1, 3).reshape(B * H, T, dk).contiguous()
+
+            layers.append(dict(std=float(valid.std()), max_abs=float(valid.abs().max()),
+                               pairs=int(valid.numel()), d_k=dk,
+                               inputs=(fold(q), fold(k), fold(v),
+                                       torch.repeat_interleave(kv_lens.to(torch.int32), H))))
+
+    hooks = [layer.slf_attn.register_forward_pre_hook(hook)
+             for layer in eng.acoustic.decoder.layers]
+    try:
+        eng.synthesize(text)
+    finally:
+        for h in hooks:
+            h.remove()
+    return layers
+
+
+def corpus_features(cfg, entries, cpu_root):
+    """Every utterance's features on the card (timed: mel and energy on the
+    card, f0 and pitch on the host), then on the CPU from a copy of the wavs,
+    held to each other.  Returns the timing record."""
+    import e2e_tts_tpu_torch.data.features as data_features
+
+    spent = {"mel_and_energy": 0.0, "f0_and_pitch": 0.0}
+
+    def timed(name):
+        real = getattr(data_features, name)
+
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return real, call
+
+    reals = {}
+    for name in spent:
+        reals[name], wrapped = timed(name)
+        setattr(data_features, name, wrapped)
+    try:
+        data_features.create_utterance_features(entries[0][0], cfg, device="cuda")  # warm-up
+        spent.update(mel_and_energy=0.0, f0_and_pitch=0.0)
+        t0 = time.perf_counter()
+        card = {wav: data_features.create_utterance_features(wav, cfg, overwrite=True,
+                                                             device="cuda")
+                for wav, *_ in entries}
+        wall = time.perf_counter() - t0
+    finally:
+        for name, real in reals.items():
+            setattr(data_features, name, real)
+    mel_mae = energy_max = 0.0
+    t0 = time.perf_counter()
+    for wav, got in card.items():
+        want = data_features.create_utterance_features(
+            os.path.join(cpu_root, "wavs", os.path.basename(wav)), cfg, device="cpu")
+        if any(got[k].shape != want[k].shape for k in want):
+            raise AssertionError(f"corpus features: shapes differ for {wav}")
+        mel_mae = max(mel_mae, float(np.abs(got["mels"] - want["mels"]).mean()))
+        energy_max = max(energy_max, float(np.abs(got["energy"] - want["energy"]).max()))
+        if not (np.array_equal(got["f0"], want["f0"]) and np.array_equal(got["pitch"],
+                                                                         want["pitch"])):
+            raise AssertionError(f"corpus features: f0 or pitch differ from the CPU for {wav}")
+    cpu_s = time.perf_counter() - t0
+    n = len(entries)
+    rec = dict(utterances=n, frames=int(sum(f["mels"].shape[1] for f in card.values())),
+               wall_s=round(wall, 4), utterances_per_s=round(n / wall, 2),
+               mel_on_card_ms_per_utt=round(1e3 * spent["mel_and_energy"] / n, 3),
+               f0_pitch_on_host_ms_per_utt=round(1e3 * spent["f0_and_pitch"] / n, 3),
+               cpu_run_s=round(cpu_s, 2), worst_mel_mae=float(f"{mel_mae:.3g}"),
+               worst_energy_max=float(f"{energy_max:.3g}"), f0_pitch_equal=True)
+    if not (mel_mae < LOGMEL_MAE and energy_max < ENERGY_TOL):
+        raise AssertionError(f"corpus features: card vs CPU mel MAE {mel_mae} (bar {LOGMEL_MAE}) "
+                             f"energy max {energy_max} (bar {ENERGY_TOL})")
+    return rec
+
+
+def timed_batches(make):
+    """Every batch of one pass of the batcher ``make()`` and the host ms each
+    took to make (collate and copy to the card)."""
+    out, it = [], make()
+    while True:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            batch = next(it)
+        except StopIteration:
+            return out
+        torch.cuda.synchronize()
+        out.append((batch, 1e3 * (time.perf_counter() - t0)))
+
+
+def resume_parity(cfg, n_symbols, n_speakers, stats, n_words, ckpt, batch, want_metrics,
+                  saved, mu_after, opt, names) -> dict:
+    """Restore the step-5 checkpoint into a fresh model (other weights and
+    dropout stream), check its Adam moments bit-equal to the saved ones, run
+    step 6 on the same batch and hold it to step 6 of the run that saved it:
+    each loss term within TRAIN_LOSS_RTOL, each gradient (read from Adam's
+    first moments) within TRAIN_GRAD_RTOL.  ``saved``: a copy of the Adam
+    state at the save; ``mu_after``: the first moments after step 6."""
+    from e2e_tts_tpu_torch.train import build_acoustic_model, init_train_state, make_train_step
+
+    model = build_acoustic_model(cfg, n_symbols, n_speakers, stats, device="cuda", seed=1)
+    state = init_train_state(model, opt, seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.restore(state, step=CKPT_STEP)
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    got_opt = state.opt_state
+    if state.step != CKPT_STEP or got_opt.count != saved.count or not all(
+            torch.equal(a, b) for a, b in zip(got_opt.mu + got_opt.nu, saved.mu + saved.nu)):
+        raise AssertionError("checkpoint: the restored step or Adam state differs")
+    _, got = make_train_step(model, cfg, opt, n_words)(state, batch)
+    loss_err = {}
+    for k, w in want_metrics.items():
+        w, g = float(w), float(got[k])
+        loss_err[k] = abs(g - w) / max(abs(w), 1e-12)
+        if not loss_err[k] < TRAIN_LOSS_RTOL:
+            raise AssertionError(f"resumed step 6: loss {k} {g} against {w}")
+    b1, worst = opt.b1, (0.0, "")
+    for name, m0, m1, m2 in zip(names, saved.mu, mu_after, state.opt_state.mu):
+        if ZERO_BY_CONSTRUCTION.search(name):
+            continue
+        g_want = (m1 - b1 * m0) / (1 - b1)
+        rel = float((m2 - m1).norm() / (1 - b1) / g_want.norm().clamp(min=1e-30))
+        worst = max(worst, (rel, name))
+    if not worst[0] < TRAIN_GRAD_RTOL:
+        raise AssertionError(f"resumed step 6: gradient of {worst[1]} rel err {worst[0]}")
+    return dict(restore_ms=round(restore_ms, 3), moments_bit_equal=True,
+                loss_rel_err={k: float(f"{v:.3g}") for k, v in loss_err.items()},
+                worst_grad_rel_err=float(f"{worst[0]:.3g}"), worst_grad=worst[1])
+
+
+def corpus_to_voice(smi: str):
+    """Phase 18: a synthetic corpus through the port on the card, from wavs to
+    a served voice.  Returns (the training kernels' launches in the 10 steps,
+    their errors on the steps' inputs, the flash kernel's error on the
+    served voice's inputs)."""
+    import shutil
+
+    from e2e_tts_tpu_torch.config import default_config
+    from e2e_tts_tpu_torch.data import (AcousticDataset, VocoderDataset, build_speaker_map,
+                                        compute_stats, create_unsupervised_filelist,
+                                        make_acoustic_batches, make_vocoder_batches,
+                                        read_filelist)
+    from e2e_tts_tpu_torch.data.synthetic import make_synthetic_corpus
+    from e2e_tts_tpu_torch.kernels.ctc import ctc_bwd, ctc_fwd
+    from e2e_tts_tpu_torch.kernels.flash_attention import flash_attention
+    from e2e_tts_tpu_torch.kernels.mas import mas
+    from e2e_tts_tpu_torch.nn.variance import FeatureStats
+    from e2e_tts_tpu_torch.serve.bundle import save_bundle
+    from e2e_tts_tpu_torch.serve.engine import SynthesisEngine
+    from e2e_tts_tpu_torch.text.symbols import symbols
+    from e2e_tts_tpu_torch.train import (CheckpointManager, VocoderBatch, acoustic_optimizer,
+                                         build_acoustic_model, gan_optimizer, init_train_state,
+                                         init_vocoder_train_state, make_train_step,
+                                         make_vocoder_train_step)
+
+    cfg = default_config()
+    n_words = max(cfg.models.fastspeech2.max_seq_len, 256)
+    work = tempfile.mkdtemp(prefix="corpus_to_voice_")
+    try:
+        root, cpu_root = os.path.join(work, "corpus"), os.path.join(work, "corpus_cpu")
+        t0 = time.perf_counter()
+        sentences = make_synthetic_corpus(root, n_sentences=CORPUS_SENTENCES, f0_jitter=0.1,
+                                          seed=0)
+        corpus_s = time.perf_counter() - t0
+        shutil.copytree(os.path.join(root, "wavs"), os.path.join(cpu_root, "wavs"))
+        _, skipped = create_unsupervised_filelist([root], os.path.join(work, "list.txt"))
+        entries = read_filelist(os.path.join(work, "list.txt"))
+        if skipped or len(entries) != 2 * CORPUS_SENTENCES:
+            raise AssertionError(f"corpus: {len(entries)} entries, skipped {skipped}")
+        prep = corpus_features(cfg, entries, cpu_root)
+        log("corpus features " + json.dumps(dict(card=smi, corpus_s=round(corpus_s, 2), **prep)))
+
+        stats = compute_stats(entries)
+        speakers = build_speaker_map(entries)
+        ds = AcousticDataset(entries, speakers, stats, cfg)
+        batches = timed_batches(lambda: make_acoustic_batches(ds, CORPUS_B, seed=0,
+                                                              device="cuda"))
+        keys = [(int(b.texts.shape[1]), int(b.mel.shape[1])) for b, _ in batches]
+        feature_stats = FeatureStats.from_dict(stats)
+
+        # the CUDA-against-CPU step parity on the first corpus batch's rows
+        train_parity(cfg, [t.cpu().numpy() for t in batches[0][0]], len(symbols), n_words)
+
+        model = build_acoustic_model(cfg, len(symbols), len(speakers), feature_stats,
+                                     device="cuda")
+        opt = acoustic_optimizer(cfg.train.fastspeech2_optimizer,
+                                 cfg.models.fastspeech2.encoder_hidden)
+        state = init_train_state(model, opt, seed=0)
+        train_step = make_train_step(model, cfg, opt, n_words)
+        names = [n for n, _ in model.named_parameters()]
+        ckpt = CheckpointManager(os.path.join(work, "ckpt"), max_to_keep=2)
+        step_ms, metrics, resume = [], [], {}
+        with recorded_train_inputs() as seen:
+            for i in range(CORPUS_STEPS):
+                batch = batches[i % len(batches)][0]
+                if i == CKPT_STEP:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ckpt.save(CKPT_STEP, state, wait=True)
+                    resume["save_ms"] = round(1e3 * (time.perf_counter() - t0), 3)
+                    saved = copy.deepcopy(state.opt_state)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, m = train_step(state, batch)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                metrics.append(m)
+                if i == CKPT_STEP:
+                    mu_after = [m_.clone() for m_ in state.opt_state.mu]
+            launches = {"mas": mas.launches, "ctc_fwd": ctc_fwd.launches,
+                        "ctc_bwd": ctc_bwd.launches}
+        if any(n != CORPUS_STEPS for n in launches.values()):
+            raise AssertionError(f"corpus training: each step should launch each training "
+                                 f"kernel once: {launches} in {CORPUS_STEPS} steps")
+        last = check_finite("corpus training", metrics)
+        errs = check_training_inputs(seen)
+        by_bucket = {}
+        for i, ms in enumerate(step_ms):
+            by_bucket.setdefault(str(keys[i % len(batches)]), []).append(round(ms, 3))
+        batch_ms = [ms for _, ms in batches]
+        log("corpus train steps " + json.dumps(dict(
+            card=smi, batches=len(batches), rows=CORPUS_B, buckets=[str(k) for k in keys],
+            batch_host_ms=[round(ms, 3) for ms in batch_ms],
+            batch_host_ms_mean=round(float(np.mean(batch_ms)), 3),
+            step_ms_by_bucket=by_bucket, step_ms_after_first_by_bucket={
+                k: round(float(np.median(v[1:] or v)), 3) for k, v in by_bucket.items()},
+            launches=launches, last_metrics=last)))
+        resume.update(resume_parity(cfg, len(symbols), len(speakers), feature_stats, n_words,
+                                    ckpt, batches[CKPT_STEP % len(batches)][0],
+                                    metrics[CKPT_STEP], saved, mu_after, opt, names))
+        log("corpus checkpoint " + json.dumps(dict(card=smi, step=CKPT_STEP, **resume)))
+        del saved, mu_after
+
+        # 2 GAN steps of HiFi-GAN V1 with MPD/MSD at reference widths on the corpus
+        vds = VocoderDataset(entries, cfg)
+        voc_batches = timed_batches(lambda: make_vocoder_batches(vds, CORPUS_B, seed=0,
+                                                                 device="cuda"))
+        gen, mpd, msd = gan_modules(cfg, device="cuda")
+        g_opt, d_opt = (gan_optimizer(cfg.train.hifigan_optimizer) for _ in range(2))
+        vstate = init_vocoder_train_state(gen, g_opt, d_opt, mpd, msd)
+        vstep = make_vocoder_train_step(gen, cfg, g_opt, d_opt, "hifigan", mpd, msd)
+        voc_ms, voc_metrics = [], []
+        for i in range(VOC_CORPUS_STEPS):
+            vb = voc_batches[i % len(voc_batches)][0]
+            if not isinstance(vb, VocoderBatch) or tuple(vb.audio.shape) != (CORPUS_B, 8192):
+                raise AssertionError(f"vocoder batch {tuple(vb.audio.shape)}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            voc_metrics.append(vstep(vstate, vb)[1])
+            torch.cuda.synchronize()
+            voc_ms.append(round(1e3 * (time.perf_counter() - t0), 3))
+        log("corpus vocoder steps " + json.dumps(dict(
+            card=smi, batches=len(voc_batches), batch=[CORPUS_B, 8192],
+            batch_host_ms=[round(ms, 3) for _, ms in voc_batches], step_ms=voc_ms,
+            last_metrics=check_finite("corpus vocoder steps", voc_metrics))))
+
+        # the trained models as a bundle, served on the card against the CPU
+        bundle_dir = os.path.join(work, "bundle")
+        t0 = time.perf_counter()
+        save_bundle(bundle_dir, cfg, model, gen, speakers, feature_stats)
+        save_s = time.perf_counter() - t0
+        eng = SynthesisEngine.from_checkpoint(bundle_dir, device="cuda")
+        cpu = SynthesisEngine.from_checkpoint(bundle_dir, device="cpu")
+        text = " ".join(sentences[:8])
+        eng.synthesize(text)  # warm-up, not counted
+        set_estimator(cpu, estimator(eng))
+        with recorded_inputs() as seen_serve:
+            out = eng.synthesize(text, speaker_id="nu")
+            served = {"flash_attention": flash_attention.launches}
+        lsb = lsb_diff(f"corpus voice: {len(text)} characters, bundle written in {save_s:.2f} s, "
+                       f"CUDA vs CPU", out, cpu.synthesize(text, speaker_id="nu"))
+        if served["flash_attention"] <= 0:
+            raise AssertionError("the corpus voice never launched flash_attention")
+        serve_err = check_serving_inputs(seen_serve, "corpus voice")
+        log("corpus voice " + json.dumps(dict(card=smi, bundle_files=sorted(os.listdir(
+            bundle_dir)), bundle_mb=round(sum(os.path.getsize(os.path.join(bundle_dir, f))
+                                              for f in os.listdir(bundle_dir)) / 2**20, 2),
+            save_bundle_s=round(save_s, 3), samples=len(out), mean_lsb=round(lsb, 4),
+            launches=served)))
+        return launches, errs, serve_err
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def logit_sharpness(smi: str) -> None:
+    """ROADMAP C5: the std of vie_tiny's decoder self-attention logits on a
+    golden text on the card, and both 16-bit kernels' ulp error on those
+    very q, k, v in bfloat16 and float16 (measured, not a bar: phase 3 holds
+    the bar)."""
+    from e2e_tts_tpu_torch.kernels.flash_attention import (attention_plain, flash_attention,
+                                                           ulp_error)
+    from e2e_tts_tpu_torch.serve.engine import SynthesisEngine
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), BUNDLE)
+    layers = decoder_logits(SynthesisEngine.from_checkpoint(path, device="cuda"), GOLDEN)
+    ulps = {}
+    for i, layer in enumerate(layers):
+        q, k, v, kv = layer.pop("inputs")
+        for dtype in (torch.bfloat16, torch.float16):
+            args = tuple(t.to(dtype) for t in (q, k, v))
+            ref = attention_plain(*args, kv)
+            for kernel in ("sm90", "mma_sync"):
+                out = flash_attention(*args, kv, kernel=kernel)
+                key = f"layer{i}_{str(dtype)[6:]}_{kernel}"
+                ulps[key] = round(ulp_error(out, ref, args[2], kv), 3)
+    log("C5 decoder logits " + json.dumps(dict(
+        card=smi, bundle=BUNDLE, text=GOLDEN,
+        layers=[{k: (round(v, 4) if isinstance(v, float) else v) for k, v in layer.items()}
+                for layer in layers], ulp_16bit=ulps)))
+
+
 def main() -> int:
-    environment()
+    smi = environment()
     build()
     attn = check_attention()
     train_kernels = check_training_kernels()
@@ -2168,6 +2579,11 @@ def main() -> int:
     log(f"bf16 serving phase: {time.perf_counter() - t0:.1f} s")
     set_estimator(eng, state)
     profile(eng, REQUESTS[-1])
+    t0 = time.perf_counter()
+    corpus_launches, corpus_errs, corpus_serve_err = corpus_to_voice(smi)
+    path_errs.append(corpus_serve_err)
+    logit_sharpness(smi)
+    log(f"corpus to voice phase: {time.perf_counter() - t0:.1f} s")
     kernels = []
     source = "e2e_tts_tpu_torch/kernels/csrc/flash_attention.cu"
     for name, dtypes, prefix, src, n, errs in (
@@ -2200,13 +2616,14 @@ def main() -> int:
             ("ctc_fwd", "e2e_tts_tpu/ops/ctc.py:30", train_row["ctc_library_fwd_ms"]),
             # F.ctc_loss forward and backward: no PyTorch call runs the backward alone
             ("ctc_bwd", "e2e_tts_tpu/ops/ctc.py:30", train_row["ctc_library_ms"])):
-        errs = [train_errs[name], e2e_errs[name]] + [
+        errs = [train_errs[name], e2e_errs[name], corpus_errs[name]] + [
             r[{"mas": "mas_err", "ctc_fwd": "ctc_loss_err", "ctc_bwd": "ctc_grad_err"}[name]]
             for r in train_kernels]
         kernels.append(dict(
             name=name, route="cuda",
             source=f"e2e_tts_tpu_torch/kernels/csrc/{'mas' if name == 'mas' else 'ctc'}.cu",
-            replaces=replaces, launches=train_launches[name] + e2e_launches[name],
+            replaces=replaces,
+            launches=train_launches[name] + e2e_launches[name] + corpus_launches[name],
             max_abs_err=max(errs),
             ms=train_row[f"{name}_ms"], plain_ms=train_row[f"{name}_plain_ms"],
             bound_ms=train_row[f"{name}_bound_ms"], bound_by=train_row[f"{name}_bound_by"],

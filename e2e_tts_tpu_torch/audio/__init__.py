@@ -1,4 +1,14 @@
-from .features import beta_binomial_prior
+from .features import (
+    ac_f0,
+    beta_binomial_prior,
+    dio_f0,
+    extract_f0,
+    extract_pitch,
+    f0_to_coarse,
+    remove_outliers,
+    stonemask,
+    yin_f0,
+)
 from .filters import hann_window, mel_filterbank
 from .mel import (
     MelParams,

@@ -1,5 +1,7 @@
 """Carry a JAX parameter tree (nested dicts of numpy arrays, as a bundle's
-``.msgpack`` holds them) into the port's modules.
+``.msgpack`` holds them) into the port's modules (``convert``,
+``load_into``), and a port module's weights back into that tree
+(``to_jax``).
 
 Layouts:
 - a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in);
@@ -19,6 +21,17 @@ do, ``v`` takes the kernel's layout and ``g`` lands as it is.
 Every array must land on a parameter or buffer of the same shape, and every
 parameter and buffer must receive one (the acoustic model's aligner
 included); anything else raises.
+
+The way back cannot reverse the renames: ``/Conv_0/`` -> ``/`` erases a path
+segment.  ``to_jax`` names each array from the type of the module that holds
+it instead, as the JAX package's modules name their leaves: in the acoustic
+model a ``Conv1d`` is flax's ``Conv`` inside a named wrapper
+(``<name>/Conv_0/{kernel,bias}``), a ``Linear`` a ``Dense``
+(``<name>/{kernel,bias}``); in a generator every convolution is weight-normed
+(``<name>/{v,g,bias}``, no ``Conv_0``).  A serving generator holds fused
+kernels and writes ``v = w`` and ``g = ||w||`` (the norm over every axis but
+the output channel), so JAX's ``g * v / ||v||`` gives back ``w`` to rounding;
+a training generator writes its (v, g) as they are.
 """
 
 from __future__ import annotations
@@ -29,6 +42,7 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from .nn import common
 from .nn.common import fuse_weight_norm
 
 _RENAMES = (
@@ -126,3 +140,96 @@ def load_into(module: torch.nn.Module, variables: dict) -> int:
                 raise ValueError(f"{name}: array {src.dtype} vs module {dst.dtype}")
             dst.copy_(src)
     return len(targets)
+
+
+_MODULE_PATHS = (  # the inverse of _RENAMES, on "/"-joined module paths
+    (r"/layers/(\d+)/", r"/layer_\1/"),
+    (r"/norms/(\d+)/", r"/ln_\1/LayerNorm_0/"),
+    (r"/layer_norm/", r"/LayerNorm_0/"),
+    (r"/bns/(\d+)/", r"/bn_\1/"),
+    (r"/ups/(\d+)/", r"/up_\1/"),
+    (r"/resblocks/(\d+)/(\d+)/", r"/res_\1_\2/"),
+    (r"/convs1/(\d+)/", r"/conv1_\1/"),
+    (r"/convs2/(\d+)/", r"/conv2_\1/"),
+    (r"/convs/(\d+)/", r"/conv_\1/"),
+)
+
+
+def _jax_module_path(name: str) -> str:
+    """'decoder.layers.0.pos_ffn.w_1' -> '/decoder/layer_0/pos_ffn/w_1/'."""
+    path = "/" + name.replace(".", "/") + "/" if name else "/"
+    for pat, rep in _MODULE_PATHS:
+        path = re.sub(pat, rep, path)
+    return path
+
+
+def _to_jax_layout(module, arr: np.ndarray) -> np.ndarray:
+    """A kernel (or weight norm's v) from the port's layout to JAX's."""
+    if isinstance(module, (common.ConvTranspose1d, common.WNConvTranspose1d)):
+        return arr.transpose(2, 0, 1)  # (in, out, k) -> (k, in, out), no flip
+    if arr.ndim == 2:
+        return arr.T
+    if arr.ndim == 4:
+        return arr.transpose(2, 3, 1, 0)  # (out, in, kh, kw) -> (kh, kw, in, out)
+    return arr.transpose(2, 1, 0)  # (out, in, k) -> (k, in, out)
+
+
+def _jax_leaves(module, leaf: str, arr: np.ndarray, weight_norm: bool):
+    """[(collection, path below the module, array)] for one tensor."""
+    if isinstance(module, common.BatchNorm):
+        return [{"weight": ("params", "scale"), "bias": ("params", "bias"),
+                 "running_mean": ("batch_stats", "mean"),
+                 "running_var": ("batch_stats", "var")}[leaf] + (arr,)]
+    if isinstance(module, torch.nn.LayerNorm):
+        return [("params", {"weight": "scale", "bias": "bias"}[leaf], arr)]
+    if isinstance(module, torch.nn.Embedding):
+        return [("params", "embedding", arr)]
+    if isinstance(module, torch.nn.Linear):
+        return [("params", "kernel" if leaf == "weight" else leaf,
+                 arr.T if leaf == "weight" else arr)]
+    if isinstance(module, common._WeightNorm):
+        return [("params", leaf, _to_jax_layout(module, arr) if leaf == "v" else arr)]
+    if isinstance(module, (common.Conv1d, common.ConvTranspose1d)):
+        if leaf == "bias":
+            return [("params", "bias" if weight_norm else "Conv_0/bias", arr)]
+        w = _to_jax_layout(module, arr)
+        if not weight_norm:
+            return [("params", "Conv_0/kernel", w)]
+        g = np.linalg.norm(w.reshape(-1, w.shape[-1]), axis=0).astype(w.dtype)
+        return [("params", "v", w), ("params", "g", g)]
+    return [("params", leaf, arr)]  # a bare parameter (a predictor's pos_alpha)
+
+
+def to_jax(module: torch.nn.Module) -> dict:
+    """A port module's weights -> the JAX package's variables
+    {"params": ..., ["batch_stats": ...]}: nested dicts of float32 numpy
+    arrays under the JAX names, as its ``save_bundle`` writes them.  A
+    generator (HiFi-GAN or iSTFTNet, serving or training form) writes
+    weight-normed convolutions; any other module (the acoustic model) plain
+    ones.  Raises unless ``convert`` of the result gives back every tensor
+    of ``module.state_dict()`` under its own name and shape."""
+    from .nn.hifigan import HifiGanGenerator, IstftNetGenerator
+
+    weight_norm = isinstance(module, (HifiGanGenerator, IstftNetGenerator))
+    state = module.state_dict()
+    tree: dict = {}
+    for name, tensor in state.items():
+        owner, _, leaf = name.rpartition(".")
+        sub = module.get_submodule(owner)
+        arr = tensor.detach().cpu().numpy()
+        if arr.dtype.kind == "f":
+            arr = arr.astype(np.float32)
+        for collection, below, a in _jax_leaves(sub, leaf, arr, weight_norm):
+            path = (_jax_module_path(owner) + below).strip("/").split("/")
+            node = tree.setdefault(collection, {})
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            if path[-1] in node:
+                raise ValueError(f"two tensors map to {collection}/{'/'.join(path)}")
+            node[path[-1]] = np.ascontiguousarray(a)
+    back = convert(tree, [n for n in state if n.endswith(".v")])
+    wrong = sorted(set(back) ^ set(state)) + sorted(
+        n for n in state if n in back and tuple(back[n].shape) != tuple(state[n].shape))
+    if wrong:
+        raise ValueError(f"the JAX names do not map back to the module: {wrong}")
+    return tree

@@ -464,6 +464,15 @@ class SynthesisEngine:
         return cls(config, acoustic, vocoder, speakers, stats, vocoder_kind=vocoder_kind,
                    language=language, device=device, dtype=dtype, **kw)
 
+    def save_checkpoint(self, bundle_dir: str) -> None:
+        """Write this engine's weights, config, speakers, stats and foreign
+        words as a deploy bundle (``serve/bundle.save_bundle``)."""
+        from .bundle import save_bundle
+
+        save_bundle(bundle_dir, self.config, self.acoustic, self.vocoder, self.speakers,
+                    self.stats, self.vocoder_kind, foreign_dict=self.foreign_dict,
+                    language=self.language)
+
     @classmethod
     def from_checkpoint(cls, bundle_dir: str, device=None, dtype=torch.float32,
                         **kw) -> "SynthesisEngine":

@@ -6,6 +6,7 @@ from .acoustic_step import (
     make_eval_step,
     make_train_step,
 )
+from .checkpoint import CheckpointManager, scan_checkpoint, warm_start_params
 from .e2e_step import E2EBatch, E2EState, init_e2e_state, make_e2e_train_step
 from .optim import (
     AdamState,

@@ -1,9 +1,14 @@
 """The port on the card: its CUDA kernels against their plain PyTorch
 versions, its audio ops on CUDA against the CPU, the batching queue on a
 small CUDA engine, one train step and two joint acoustic + vocoder steps
-that launch the training kernels, and a vocoder GAN step against the CPU.
+that launch the training kernels, a vocoder GAN step against the CPU, and
+data preparation: a synthetic corpus's features on the card against the
+CPU (log-mel MAE < 1e-4, energy max < 2e-2, f0 and pitch equal) and one
+default-width train step on a bucketed batch of it.
 
-Every test here is marked ``cuda`` and skips without a GPU.  The file imports
+Every test here is marked ``cuda`` and skips without a GPU, but one: the
+data entry points' ``device=None`` raising without a card runs on the CPU
+only.  The file imports
 no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -548,3 +553,92 @@ def test_e2e_step_launches_the_training_kernels(cuda):
     assert (mas.launches, ctc_fwd.launches, ctc_bwd.launches) == tuple(n + 2 for n in before)
     assert state.step == 2
     assert all(p.grad is None for m in (model, gen, mpd, msd) for p in m.parameters())
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    """A synthetic corpus of 2 sentences x 2 speakers and its file list."""
+    from e2e_tts_tpu_torch.data import create_unsupervised_filelist, read_filelist
+    from e2e_tts_tpu_torch.data.synthetic import make_synthetic_corpus
+
+    root = str(tmp_path_factory.mktemp("corpus"))
+    make_synthetic_corpus(root, n_sentences=2, f0_jitter=0.1, seed=0)
+    create_unsupervised_filelist([root], f"{root}/list.txt")
+    return root, read_filelist(f"{root}/list.txt")
+
+
+def test_card_features_match_cpu(cuda, corpus, tmp_path):
+    """``create_utterance_features`` on the card against the CPU on one
+    utterance: log-mel MAE < 1e-4, energy max < 2e-2, f0 and pitch (host
+    code) equal."""
+    import shutil
+
+    from e2e_tts_tpu_torch.config import default_config
+    from e2e_tts_tpu_torch.data import create_utterance_features
+
+    wav = corpus[1][0][0]
+    copy = tmp_path / "wavs"
+    copy.mkdir()
+    shutil.copy(wav, copy)
+    cpu = create_utterance_features(str(copy / wav.rsplit("/", 1)[1]), default_config(),
+                                    device="cpu")
+    gpu = create_utterance_features(wav, default_config(), overwrite=True, device=cuda)
+    assert {k: v.shape for k, v in gpu.items()} == {k: v.shape for k, v in cpu.items()}
+    assert np.abs(gpu["mels"] - cpu["mels"]).mean() < 1e-4
+    assert np.abs(gpu["energy"] - cpu["energy"]).max() < 2e-2
+    np.testing.assert_array_equal(gpu["f0"], cpu["f0"])
+    np.testing.assert_array_equal(gpu["pitch"], cpu["pitch"])
+
+
+def test_default_width_train_step_on_a_corpus_batch(cuda, corpus):
+    """Features, stats and a bucketed batch of the corpus, then one train step
+    of the default-width model on the card: MAS and both CTC kernels launch
+    once, the losses are finite."""
+    from e2e_tts_tpu_torch.config import default_config
+    from e2e_tts_tpu_torch.data import (AcousticDataset, build_speaker_map, compute_stats,
+                                        create_utterance_features, make_acoustic_batches)
+    from e2e_tts_tpu_torch.kernels.ctc import ctc_bwd, ctc_fwd
+    from e2e_tts_tpu_torch.kernels.mas import mas
+    from e2e_tts_tpu_torch.text.symbols import symbols
+    from e2e_tts_tpu_torch.train import (acoustic_optimizer, build_acoustic_model,
+                                         init_train_state, make_train_step)
+
+    cfg = default_config()
+    _, entries = corpus
+    for wav, *_ in entries:
+        create_utterance_features(wav, cfg, device=cuda)
+    speakers = build_speaker_map(entries)
+    ds = AcousticDataset(entries, speakers, compute_stats(entries), cfg)
+    batch = next(make_acoustic_batches(ds, 4, seed=0, device=cuda))
+    assert batch.mel.is_cuda and batch.mel.shape[0] == 4
+    model = build_acoustic_model(cfg, len(symbols), len(speakers), device=cuda)
+    opt = acoustic_optimizer(cfg.train.fastspeech2_optimizer, cfg.models.fastspeech2.encoder_hidden)
+    state = init_train_state(model, opt)
+    before = (mas.launches, ctc_fwd.launches, ctc_bwd.launches)
+    _, metrics = make_train_step(model, cfg, opt, 256)(state, batch)
+    torch.cuda.synchronize()
+    assert (mas.launches, ctc_fwd.launches, ctc_bwd.launches) == tuple(n + 1 for n in before)
+    assert all(torch.isfinite(v).item() for v in metrics.values())
+
+
+def test_data_entry_points_raise_without_a_card(corpus):
+    """``device=None`` means CUDA: without a card the feature and batch entry
+    points raise instead of running on the CPU (a CPU test)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None resolves to it")
+    from e2e_tts_tpu_torch.config import default_config
+    from e2e_tts_tpu_torch.data import (AcousticDataset, VocoderDataset, build_speaker_map,
+                                        create_utterance_features, make_acoustic_batches,
+                                        make_vocoder_batches)
+
+    _, entries = corpus
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_utterance_features(entries[0][0], default_config())
+    for wav, *_ in entries:
+        create_utterance_features(wav, default_config(), device="cpu")
+    stats = {k: {"mean": 0.0, "std": 1.0} for k in ("pitch", "energy", "f0")}
+    ds = AcousticDataset(entries, build_speaker_map(entries), stats, default_config())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_acoustic_batches(ds, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_vocoder_batches(VocoderDataset(entries, default_config()), 2)

@@ -16,7 +16,11 @@ package's, on the CPU.
   JAX): the same length and mean |diff| < 1 LSB; ``vocode_mel`` max |diff|
   < 1e-4 on both vocoder kinds.
 - ``mel_content_features`` (the aligner's posteriorgram) max |diff| < 1e-5.
-- ``device=None`` without CUDA raises; the port imports no JAX.
+- Bundles the port writes (``save_checkpoint`` of its vie_tiny engine, and
+  ``save_bundle`` of a model made from a seed with no bundle behind it):
+  JAX's engine serves them within 1 LSB mean of the port's engine.
+- ``device=None`` without CUDA raises; the port imports no JAX, and its f0
+  trackers load the port's own native YIN library.
 """
 
 import functools
@@ -255,6 +259,68 @@ def test_engine_options_the_port_does_not_take():
         SynthesisEngine.from_checkpoint(VIE_TINY, device="cpu", transfer_codec="mulaw8")
 
 
+def test_port_written_bundle_served_by_jax(tmp_path):
+    """``save_checkpoint`` of the port's vie_tiny engine (the serving
+    vocoder's fused kernels written as v = w, g = ||w||): JAX's engine
+    serves it within 1 LSB mean of the port's engine."""
+    jeng, peng = _engines()
+    peng.save_checkpoint(str(tmp_path / "b"))
+    jax_served = JaxEngine.from_checkpoint(str(tmp_path / "b"))
+    assert jax_served.speakers == jeng.speakers and jax_served.language == jeng.language
+    _same_audio(peng.synthesize(GOLDEN[0]), jax_served.synthesize(GOLDEN[0]))
+    again = SynthesisEngine.from_checkpoint(str(tmp_path / "b"), device="cpu")
+    np.testing.assert_array_equal(again.synthesize(GOLDEN[0]), peng.synthesize(GOLDEN[0]))
+
+
+def test_bundle_of_a_fresh_port_model_served_by_jax(tmp_path):
+    """A model the port made from a seed, with no bundle behind it (vie_tiny's
+    config, the training-form generator writing its own (v, g), its last
+    kernels at a trained norm, so that the waveform is at a speaking level):
+    JAX's engine serves the bundle
+    within 1 LSB mean of the port's engine."""
+    from e2e_tts_tpu_torch.models.acoustic import FastSpeech2
+    from e2e_tts_tpu_torch.models.vocoder import build_generator
+    from e2e_tts_tpu_torch.serve.bundle import save_bundle
+    from e2e_tts_tpu_torch.text.symbols import symbols
+
+    _engines()  # the JAX programs of vie_tiny's shapes, compiled once
+    b = load_bundle(VIE_TINY)
+    g = torch.Generator().manual_seed(5)
+    acoustic = FastSpeech2(b.config.models.fastspeech2, len(symbols), 2,
+                           b.config.audio.mel.channels, b.stats, device="cpu", generator=g)
+    vocoder = build_generator(b.config, "hifigan", train=True, device="cpu", generator=g)
+    with torch.no_grad():  # each kernel at norm U(0.5, 1.5), as a trained one keeps its level
+        for name, p in vocoder.named_parameters():
+            if name.endswith(".g"):
+                p.uniform_(0.5, 1.5, generator=g)
+    speakers = {"a": 0, "b": 1}
+    save_bundle(str(tmp_path / "fresh"), b.config, acoustic, vocoder, speakers, b.stats)
+    jeng = JaxEngine.from_checkpoint(str(tmp_path / "fresh"))
+    peng = SynthesisEngine.from_checkpoint(str(tmp_path / "fresh"), device="cpu")
+    for spk in speakers:
+        got, want = peng.synthesize(GOLDEN[1], speaker_id=spk), jeng.synthesize(
+            GOLDEN[1], speaker_id=spk)
+        assert np.abs(want.astype(np.int32)).max() > 1000  # audible, so 1 LSB tests something
+        _same_audio(got, want)
+
+
+def test_c5_decoder_logits_of_a_trained_voice():
+    """ROADMAP C5 on the CPU: the std of vie_tiny's decoder self-attention
+    logits q k^T / sqrt(d_k) on a golden text (the card's run is
+    ``chip_smoke.logit_sharpness``).  C5's bar was probed at std ~0.1 (within
+    one ulp) and std ~1 (2 ulp in float16); this trained voice lies past
+    both, at 6.80 and 4.90 in its two layers."""
+    from chip_smoke import GOLDEN as C5_TEXT
+    from chip_smoke import decoder_logits
+
+    layers = decoder_logits(SynthesisEngine.from_checkpoint(VIE_TINY, device="cpu"), C5_TEXT)
+    assert len(layers) == 2 and all(layer["d_k"] == 24 for layer in layers)
+    stds = [layer["std"] for layer in layers]
+    np.testing.assert_allclose(stds, [6.8023, 4.9012], rtol=1e-3)
+    q, k, v, kv = layers[0]["inputs"]
+    assert q.shape == k.shape == v.shape and q.shape[0] == len(kv)
+
+
 def test_device_none_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None resolves to it")
@@ -283,17 +349,32 @@ def test_port_imports_no_jax():
                "e2e_tts_tpu_torch.nn.hifigan", "e2e_tts_tpu_torch.models.blocks",
                "e2e_tts_tpu_torch.models.acoustic", "e2e_tts_tpu_torch.models.vocoder",
                "e2e_tts_tpu_torch.ops.pitch", "e2e_tts_tpu_torch.ops.length_regulator",
-               "e2e_tts_tpu_torch.audio.mel"]
+               "e2e_tts_tpu_torch.audio.mel", "e2e_tts_tpu_torch.data",
+               "e2e_tts_tpu_torch.data.synthetic", "e2e_tts_tpu_torch.data.filelist",
+               "e2e_tts_tpu_torch.data.audio_prep", "e2e_tts_tpu_torch.data.features",
+               "e2e_tts_tpu_torch.data.mfa", "e2e_tts_tpu_torch.data.dataset",
+               "e2e_tts_tpu_torch.native", "e2e_tts_tpu_torch.native.build",
+               "e2e_tts_tpu_torch.train.checkpoint"]
+    # the f0 trackers run too: the native YIN must be the port's own library
     code = (f"import sys, {', '.join(modules)}\n"
+            "import numpy as np\n"
             "from e2e_tts_tpu_torch.text.frontends import get_frontend\n"
+            "from e2e_tts_tpu_torch.audio import extract_f0, extract_pitch\n"
             "[get_frontend(lang) for lang in ('vie', 'eng', 'mya')]\n"
-            "print('\\n'.join(sorted(sys.modules)))")
+            "x = np.sin(np.arange(8000) * 0.06).astype(np.float32)\n"
+            "extract_f0(x, 32, 22050, 256), extract_pitch(x, 22050, 256)\n"
+            "maps = open('/proc/self/maps').read().split()\n"
+            "print('\\n'.join(sorted(sys.modules) + [m for m in maps if 'libyin' in m]))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                          text=True, check=True, timeout=120).stdout.split()
     assert {"e2e_tts_tpu_torch.serve.engine", "e2e_tts_tpu_torch.serve.queue",
             "e2e_tts_tpu_torch.models.denoiser", "e2e_tts_tpu_torch.train.acoustic_step",
-            "e2e_tts_tpu_torch.kernels.ctc", "e2e_tts_tpu_torch.train.e2e_step"} <= set(out)
+            "e2e_tts_tpu_torch.kernels.ctc", "e2e_tts_tpu_torch.train.e2e_step",
+            "e2e_tts_tpu_torch.data.dataset", "e2e_tts_tpu_torch.train.checkpoint"} <= set(out)
+    libs = {m for m in out if "libyin" in m}
+    assert libs and all(m.startswith(os.path.join(REPO, "e2e_tts_tpu_torch", "native", "_build"))
+                        for m in libs), libs
     bad = [m for m in out if m in ("jax", "flax", "e2e_tts_tpu") or m.startswith(
         ("jax.", "flax.", "e2e_tts_tpu."))]
     assert not bad, bad

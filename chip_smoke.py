@@ -104,16 +104,31 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ROADMAP C5: the std of ``vie_tiny``'s decoder attention logits on a
    golden text, and the 16-bit kernels' ulp error on those inputs
    (measured, not a bar);
-19. a JSON line of every kernel (the flash kernel's float32 form and its two
+19. the training CLI, corpus to voice: phase 18's corpus through
+   ``python -m e2e_tts_tpu_torch.train.cli`` (called in this process) at the
+   default width: ``prepare`` -> ``acoustic`` (8 steps, a checkpoint and a
+   validation every 4) -> ``vocoder`` (2) -> ``acoustic`` resumed to step 10
+   -> ``e2e`` (2, ``--am-lr-scale 0.1 --adv-warmup 2``) -> ``generate-mels``
+   -> ``vocoder --predicted-mels`` (resumed, 1) -> ``export``, the voice
+   served on the card against the CPU (1 LSB mean; flash launched); MAS and
+   the CTC forward and backward once a train step (and MAS and the CTC
+   forward once a validation batch), held to their plain versions on the
+   steps' inputs; then ``--supervised`` on the corpus labelled with its
+   durations (prepare, 4 acoustic steps, 1 GAN step, export, served against
+   the CPU; no MAS or CTC launch); each subcommand's seconds, the acoustic
+   loop's wall ms a step with its prefetch thread beside the same steps on
+   batches made before, and the device busy share of one profiled step of
+   the loop, beside the card's name and power limit;
+20. a JSON line of every kernel (the flash kernel's float32 form and its two
    16-bit kernels apart), then the JSON result as the last line.
 
-Each path that launches kernels (phases 5, 8, 9, 10, 11, 12, 14, 15, 16 and 18) is driven
-with the launch counts set to 0 just before it and read just after, and each
-kernel is held against its plain version on the first inputs that path gave
-it (``recorded_inputs``, ``recorded_train_inputs``).  The kernels' JSON line
+Each path that launches kernels (phases 5, 8, 9, 10, 11, 12, 14, 15, 16, 18
+and 19) is driven with the launch counts set to 0 just before it and read
+just after, and each kernel is held against its plain version on the first
+inputs that path gave it (``recorded_inputs``, ``recorded_train_inputs``).  The kernels' JSON line
 counts the serving run's launches of flash attention (phase 5's of the
 float32 form, phase 16's batch-8 run's of each 16-bit kernel) and phases 12,
-14 and 18's of the training kernels.  From phase 6 on, the random
+14, 18 and 19's of the training kernels (19: its train steps').  From phase 6 on, the random
 vocoders run with their last convolution scaled so that the waveform is at a
 speaking level (``make_audible``): the random weights alone give well under
 1 LSB.
@@ -2170,6 +2185,12 @@ def device_busy(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    return profile_busy(prof, wall_ms)
+
+
+def profile_busy(prof, wall_ms: float):
+    """``device_busy``'s record from a finished ``torch.profiler`` run over a
+    window of ``wall_ms``; None when it shows no device time."""
     events = prof.key_averages()
     kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
     dev_ms = lambda e: getattr(e, "self_device_time_total", 0.0) / 1e3  # noqa: E731
@@ -2368,11 +2389,12 @@ def resume_parity(cfg, n_symbols, n_speakers, stats, n_words, ckpt, batch, want_
                 worst_grad_rel_err=float(f"{worst[0]:.3g}"), worst_grad=worst[1])
 
 
-def corpus_to_voice(smi: str):
+def corpus_to_voice(smi: str, work: str):
     """Phase 18: a synthetic corpus through the port on the card, from wavs to
-    a served voice.  Returns (the training kernels' launches in the 10 steps,
-    their errors on the steps' inputs, the flash kernel's error on the
-    served voice's inputs)."""
+    a served voice, in ``work`` (the corpus stays there for phase 19).
+    Returns (the training kernels' launches in the 10 steps, their errors on
+    the steps' inputs, the flash kernel's error on the served voice's
+    inputs)."""
     import shutil
 
     from e2e_tts_tpu_torch.config import default_config
@@ -2395,131 +2417,127 @@ def corpus_to_voice(smi: str):
 
     cfg = default_config()
     n_words = max(cfg.models.fastspeech2.max_seq_len, 256)
-    work = tempfile.mkdtemp(prefix="corpus_to_voice_")
-    try:
-        root, cpu_root = os.path.join(work, "corpus"), os.path.join(work, "corpus_cpu")
-        t0 = time.perf_counter()
-        sentences = make_synthetic_corpus(root, n_sentences=CORPUS_SENTENCES, f0_jitter=0.1,
-                                          seed=0)
-        corpus_s = time.perf_counter() - t0
-        shutil.copytree(os.path.join(root, "wavs"), os.path.join(cpu_root, "wavs"))
-        _, skipped = create_unsupervised_filelist([root], os.path.join(work, "list.txt"))
-        entries = read_filelist(os.path.join(work, "list.txt"))
-        if skipped or len(entries) != 2 * CORPUS_SENTENCES:
-            raise AssertionError(f"corpus: {len(entries)} entries, skipped {skipped}")
-        prep = corpus_features(cfg, entries, cpu_root)
-        log("corpus features " + json.dumps(dict(card=smi, corpus_s=round(corpus_s, 2), **prep)))
+    root, cpu_root = os.path.join(work, "corpus"), os.path.join(work, "corpus_cpu")
+    t0 = time.perf_counter()
+    sentences = make_synthetic_corpus(root, n_sentences=CORPUS_SENTENCES, f0_jitter=0.1,
+                                      seed=0)
+    corpus_s = time.perf_counter() - t0
+    shutil.copytree(os.path.join(root, "wavs"), os.path.join(cpu_root, "wavs"))
+    _, skipped = create_unsupervised_filelist([root], os.path.join(work, "list.txt"))
+    entries = read_filelist(os.path.join(work, "list.txt"))
+    if skipped or len(entries) != 2 * CORPUS_SENTENCES:
+        raise AssertionError(f"corpus: {len(entries)} entries, skipped {skipped}")
+    prep = corpus_features(cfg, entries, cpu_root)
+    log("corpus features " + json.dumps(dict(card=smi, corpus_s=round(corpus_s, 2), **prep)))
 
-        stats = compute_stats(entries)
-        speakers = build_speaker_map(entries)
-        ds = AcousticDataset(entries, speakers, stats, cfg)
-        batches = timed_batches(lambda: make_acoustic_batches(ds, CORPUS_B, seed=0,
-                                                              device="cuda"))
-        keys = [(int(b.texts.shape[1]), int(b.mel.shape[1])) for b, _ in batches]
-        feature_stats = FeatureStats.from_dict(stats)
+    stats = compute_stats(entries)
+    speakers = build_speaker_map(entries)
+    ds = AcousticDataset(entries, speakers, stats, cfg)
+    batches = timed_batches(lambda: make_acoustic_batches(ds, CORPUS_B, seed=0,
+                                                          device="cuda"))
+    keys = [(int(b.texts.shape[1]), int(b.mel.shape[1])) for b, _ in batches]
+    feature_stats = FeatureStats.from_dict(stats)
 
-        # the CUDA-against-CPU step parity on the first corpus batch's rows
-        train_parity(cfg, [t.cpu().numpy() for t in batches[0][0]], len(symbols), n_words)
+    # the CUDA-against-CPU step parity on the first corpus batch's rows
+    train_parity(cfg, [t.cpu().numpy() for t in batches[0][0]], len(symbols), n_words)
 
-        model = build_acoustic_model(cfg, len(symbols), len(speakers), feature_stats,
-                                     device="cuda")
-        opt = acoustic_optimizer(cfg.train.fastspeech2_optimizer,
-                                 cfg.models.fastspeech2.encoder_hidden)
-        state = init_train_state(model, opt, seed=0)
-        train_step = make_train_step(model, cfg, opt, n_words)
-        names = [n for n, _ in model.named_parameters()]
-        ckpt = CheckpointManager(os.path.join(work, "ckpt"), max_to_keep=2)
-        step_ms, metrics, resume = [], [], {}
-        with recorded_train_inputs() as seen:
-            for i in range(CORPUS_STEPS):
-                batch = batches[i % len(batches)][0]
-                if i == CKPT_STEP:
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    ckpt.save(CKPT_STEP, state, wait=True)
-                    resume["save_ms"] = round(1e3 * (time.perf_counter() - t0), 3)
-                    saved = copy.deepcopy(state.opt_state)
+    model = build_acoustic_model(cfg, len(symbols), len(speakers), feature_stats,
+                                 device="cuda")
+    opt = acoustic_optimizer(cfg.train.fastspeech2_optimizer,
+                             cfg.models.fastspeech2.encoder_hidden)
+    state = init_train_state(model, opt, seed=0)
+    train_step = make_train_step(model, cfg, opt, n_words)
+    names = [n for n, _ in model.named_parameters()]
+    ckpt = CheckpointManager(os.path.join(work, "ckpt"), max_to_keep=2)
+    step_ms, metrics, resume = [], [], {}
+    with recorded_train_inputs() as seen:
+        for i in range(CORPUS_STEPS):
+            batch = batches[i % len(batches)][0]
+            if i == CKPT_STEP:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                _, m = train_step(state, batch)
-                torch.cuda.synchronize()
-                step_ms.append(1e3 * (time.perf_counter() - t0))
-                metrics.append(m)
-                if i == CKPT_STEP:
-                    mu_after = [m_.clone() for m_ in state.opt_state.mu]
-            launches = {"mas": mas.launches, "ctc_fwd": ctc_fwd.launches,
-                        "ctc_bwd": ctc_bwd.launches}
-        if any(n != CORPUS_STEPS for n in launches.values()):
-            raise AssertionError(f"corpus training: each step should launch each training "
-                                 f"kernel once: {launches} in {CORPUS_STEPS} steps")
-        last = check_finite("corpus training", metrics)
-        errs = check_training_inputs(seen)
-        by_bucket = {}
-        for i, ms in enumerate(step_ms):
-            by_bucket.setdefault(str(keys[i % len(batches)]), []).append(round(ms, 3))
-        batch_ms = [ms for _, ms in batches]
-        log("corpus train steps " + json.dumps(dict(
-            card=smi, batches=len(batches), rows=CORPUS_B, buckets=[str(k) for k in keys],
-            batch_host_ms=[round(ms, 3) for ms in batch_ms],
-            batch_host_ms_mean=round(float(np.mean(batch_ms)), 3),
-            step_ms_by_bucket=by_bucket, step_ms_after_first_by_bucket={
-                k: round(float(np.median(v[1:] or v)), 3) for k, v in by_bucket.items()},
-            launches=launches, last_metrics=last)))
-        resume.update(resume_parity(cfg, len(symbols), len(speakers), feature_stats, n_words,
-                                    ckpt, batches[CKPT_STEP % len(batches)][0],
-                                    metrics[CKPT_STEP], saved, mu_after, opt, names))
-        log("corpus checkpoint " + json.dumps(dict(card=smi, step=CKPT_STEP, **resume)))
-        del saved, mu_after
-
-        # 2 GAN steps of HiFi-GAN V1 with MPD/MSD at reference widths on the corpus
-        vds = VocoderDataset(entries, cfg)
-        voc_batches = timed_batches(lambda: make_vocoder_batches(vds, CORPUS_B, seed=0,
-                                                                 device="cuda"))
-        gen, mpd, msd = gan_modules(cfg, device="cuda")
-        g_opt, d_opt = (gan_optimizer(cfg.train.hifigan_optimizer) for _ in range(2))
-        vstate = init_vocoder_train_state(gen, g_opt, d_opt, mpd, msd)
-        vstep = make_vocoder_train_step(gen, cfg, g_opt, d_opt, "hifigan", mpd, msd)
-        voc_ms, voc_metrics = [], []
-        for i in range(VOC_CORPUS_STEPS):
-            vb = voc_batches[i % len(voc_batches)][0]
-            if not isinstance(vb, VocoderBatch) or tuple(vb.audio.shape) != (CORPUS_B, 8192):
-                raise AssertionError(f"vocoder batch {tuple(vb.audio.shape)}")
+                ckpt.save(CKPT_STEP, state, wait=True)
+                resume["save_ms"] = round(1e3 * (time.perf_counter() - t0), 3)
+                saved = copy.deepcopy(state.opt_state)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            voc_metrics.append(vstep(vstate, vb)[1])
+            _, m = train_step(state, batch)
             torch.cuda.synchronize()
-            voc_ms.append(round(1e3 * (time.perf_counter() - t0), 3))
-        log("corpus vocoder steps " + json.dumps(dict(
-            card=smi, batches=len(voc_batches), batch=[CORPUS_B, 8192],
-            batch_host_ms=[round(ms, 3) for _, ms in voc_batches], step_ms=voc_ms,
-            last_metrics=check_finite("corpus vocoder steps", voc_metrics))))
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            metrics.append(m)
+            if i == CKPT_STEP:
+                mu_after = [m_.clone() for m_ in state.opt_state.mu]
+        launches = {"mas": mas.launches, "ctc_fwd": ctc_fwd.launches,
+                    "ctc_bwd": ctc_bwd.launches}
+    if any(n != CORPUS_STEPS for n in launches.values()):
+        raise AssertionError(f"corpus training: each step should launch each training "
+                             f"kernel once: {launches} in {CORPUS_STEPS} steps")
+    last = check_finite("corpus training", metrics)
+    errs = check_training_inputs(seen)
+    by_bucket = {}
+    for i, ms in enumerate(step_ms):
+        by_bucket.setdefault(str(keys[i % len(batches)]), []).append(round(ms, 3))
+    batch_ms = [ms for _, ms in batches]
+    log("corpus train steps " + json.dumps(dict(
+        card=smi, batches=len(batches), rows=CORPUS_B, buckets=[str(k) for k in keys],
+        batch_host_ms=[round(ms, 3) for ms in batch_ms],
+        batch_host_ms_mean=round(float(np.mean(batch_ms)), 3),
+        step_ms_by_bucket=by_bucket, step_ms_after_first_by_bucket={
+            k: round(float(np.median(v[1:] or v)), 3) for k, v in by_bucket.items()},
+        launches=launches, last_metrics=last)))
+    resume.update(resume_parity(cfg, len(symbols), len(speakers), feature_stats, n_words,
+                                ckpt, batches[CKPT_STEP % len(batches)][0],
+                                metrics[CKPT_STEP], saved, mu_after, opt, names))
+    log("corpus checkpoint " + json.dumps(dict(card=smi, step=CKPT_STEP, **resume)))
+    del saved, mu_after
 
-        # the trained models as a bundle, served on the card against the CPU
-        bundle_dir = os.path.join(work, "bundle")
+    # 2 GAN steps of HiFi-GAN V1 with MPD/MSD at reference widths on the corpus
+    vds = VocoderDataset(entries, cfg)
+    voc_batches = timed_batches(lambda: make_vocoder_batches(vds, CORPUS_B, seed=0,
+                                                             device="cuda"))
+    gen, mpd, msd = gan_modules(cfg, device="cuda")
+    g_opt, d_opt = (gan_optimizer(cfg.train.hifigan_optimizer) for _ in range(2))
+    vstate = init_vocoder_train_state(gen, g_opt, d_opt, mpd, msd)
+    vstep = make_vocoder_train_step(gen, cfg, g_opt, d_opt, "hifigan", mpd, msd)
+    voc_ms, voc_metrics = [], []
+    for i in range(VOC_CORPUS_STEPS):
+        vb = voc_batches[i % len(voc_batches)][0]
+        if not isinstance(vb, VocoderBatch) or tuple(vb.audio.shape) != (CORPUS_B, 8192):
+            raise AssertionError(f"vocoder batch {tuple(vb.audio.shape)}")
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        save_bundle(bundle_dir, cfg, model, gen, speakers, feature_stats)
-        save_s = time.perf_counter() - t0
-        eng = SynthesisEngine.from_checkpoint(bundle_dir, device="cuda")
-        cpu = SynthesisEngine.from_checkpoint(bundle_dir, device="cpu")
-        text = " ".join(sentences[:8])
-        eng.synthesize(text)  # warm-up, not counted
-        set_estimator(cpu, estimator(eng))
-        with recorded_inputs() as seen_serve:
-            out = eng.synthesize(text, speaker_id="nu")
-            served = {"flash_attention": flash_attention.launches}
-        lsb = lsb_diff(f"corpus voice: {len(text)} characters, bundle written in {save_s:.2f} s, "
-                       f"CUDA vs CPU", out, cpu.synthesize(text, speaker_id="nu"))
-        if served["flash_attention"] <= 0:
-            raise AssertionError("the corpus voice never launched flash_attention")
-        serve_err = check_serving_inputs(seen_serve, "corpus voice")
-        log("corpus voice " + json.dumps(dict(card=smi, bundle_files=sorted(os.listdir(
-            bundle_dir)), bundle_mb=round(sum(os.path.getsize(os.path.join(bundle_dir, f))
-                                              for f in os.listdir(bundle_dir)) / 2**20, 2),
-            save_bundle_s=round(save_s, 3), samples=len(out), mean_lsb=round(lsb, 4),
-            launches=served)))
-        return launches, errs, serve_err
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+        voc_metrics.append(vstep(vstate, vb)[1])
+        torch.cuda.synchronize()
+        voc_ms.append(round(1e3 * (time.perf_counter() - t0), 3))
+    log("corpus vocoder steps " + json.dumps(dict(
+        card=smi, batches=len(voc_batches), batch=[CORPUS_B, 8192],
+        batch_host_ms=[round(ms, 3) for _, ms in voc_batches], step_ms=voc_ms,
+        last_metrics=check_finite("corpus vocoder steps", voc_metrics))))
+
+    # the trained models as a bundle, served on the card against the CPU
+    bundle_dir = os.path.join(work, "bundle")
+    t0 = time.perf_counter()
+    save_bundle(bundle_dir, cfg, model, gen, speakers, feature_stats)
+    save_s = time.perf_counter() - t0
+    eng = SynthesisEngine.from_checkpoint(bundle_dir, device="cuda")
+    cpu = SynthesisEngine.from_checkpoint(bundle_dir, device="cpu")
+    text = " ".join(sentences[:8])
+    eng.synthesize(text)  # warm-up, not counted
+    set_estimator(cpu, estimator(eng))
+    with recorded_inputs() as seen_serve:
+        out = eng.synthesize(text, speaker_id="nu")
+        served = {"flash_attention": flash_attention.launches}
+    lsb = lsb_diff(f"corpus voice: {len(text)} characters, bundle written in {save_s:.2f} s, "
+                   f"CUDA vs CPU", out, cpu.synthesize(text, speaker_id="nu"))
+    if served["flash_attention"] <= 0:
+        raise AssertionError("the corpus voice never launched flash_attention")
+    serve_err = check_serving_inputs(seen_serve, "corpus voice")
+    log("corpus voice " + json.dumps(dict(card=smi, bundle_files=sorted(os.listdir(
+        bundle_dir)), bundle_mb=round(sum(os.path.getsize(os.path.join(bundle_dir, f))
+                                          for f in os.listdir(bundle_dir)) / 2**20, 2),
+        save_bundle_s=round(save_s, 3), samples=len(out), mean_lsb=round(lsb, 4),
+        launches=served)))
+    return launches, errs, serve_err
 
 
 def logit_sharpness(smi: str) -> None:
@@ -2547,6 +2565,274 @@ def logit_sharpness(smi: str) -> None:
         card=smi, bundle=BUNDLE, text=GOLDEN,
         layers=[{k: (round(v, 4) if isinstance(v, float) else v) for k, v in layer.items()}
                 for layer in layers], ulp_16bit=ulps)))
+
+
+# --- 19. the training CLI: corpus to voice ----------------------------------------------------
+
+CLI_STEPS, CLI_CKPT, CLI_RESUME = 8, 4, 10  # acoustic --steps 8 --ckpt-every 4, then --steps 10
+CLI_SUPERVISED_STEPS = 4
+
+
+def run_cli(seconds: dict, name: str, argv, on_step=None):
+    """``python -m e2e_tts_tpu_torch.train.cli`` ``argv`` on the card, in this
+    process (so that the launch counts and the recorded inputs see it): its
+    printed lines (also logged) and its result; its seconds, from a
+    synchronized card to a synchronized card, go into ``seconds[name]``."""
+    import io
+
+    from e2e_tts_tpu_torch.train import cli
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = cli.main(list(argv) + ["--device", "cuda"], on_step)
+    torch.cuda.synchronize()
+    seconds[name] = round(time.perf_counter() - t0, 3)
+    out = buf.getvalue()
+    for line in out.strip().splitlines():
+        log(f"  {line}")
+    return out, result
+
+
+def training_launches() -> dict:
+    from e2e_tts_tpu_torch.kernels.ctc import ctc_bwd, ctc_fwd
+    from e2e_tts_tpu_torch.kernels.mas import mas
+
+    return {"mas": mas.launches, "ctc_fwd": ctc_fwd.launches, "ctc_bwd": ctc_bwd.launches}
+
+
+def reset_training_launches() -> None:
+    from e2e_tts_tpu_torch.kernels.ctc import ctc_bwd, ctc_fwd
+    from e2e_tts_tpu_torch.kernels.mas import mas
+
+    mas.launches = ctc_fwd.launches = ctc_bwd.launches = 0
+
+
+def expect_launches(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: training kernel launches {got}, expected {want}")
+    log(f"{what}: launches {got}")
+
+
+def step_wall_ms(stamps, first: int, last: int) -> float:
+    """Mean wall ms a step from the synchronized end of step ``first`` to that
+    of step ``last`` (1-based) in ``stamps``."""
+    return 1e3 * (stamps[last - 1] - stamps[first - 1]) / (last - first)
+
+
+def serve_cli_bundle(smi: str, bundle_dir: str, text: str, what: str):
+    """The bundle on the card (counted) against the CPU, their vocoders made
+    audible alike: returns (mean LSB, flash launches, the kernel's worst
+    error on the run's own inputs)."""
+    from e2e_tts_tpu_torch.kernels.flash_attention import flash_attention
+    from e2e_tts_tpu_torch.serve.engine import SynthesisEngine
+
+    eng = SynthesisEngine.from_checkpoint(bundle_dir, device="cuda")
+    cpu = SynthesisEngine.from_checkpoint(bundle_dir, device="cpu")
+    make_audible(eng, cpu)
+    eng.synthesize(text)  # warm-up, not counted
+    set_estimator(cpu, estimator(eng))
+    with recorded_inputs() as seen:
+        out = eng.synthesize(text, speaker_id="nu")
+        launches = flash_attention.launches
+    lsb = lsb_diff(f"{what}: {len(text)} characters, CUDA vs CPU", out,
+                   cpu.synthesize(text, speaker_id="nu"))
+    if launches <= 0:
+        raise AssertionError(f"{what}: serving never launched flash_attention")
+    return lsb, launches, check_serving_inputs(seen, what)
+
+
+def cli_corpus_to_voice(smi: str, work: str):
+    """Phase 19: phase 18's corpus through the training CLI on the card, at
+    the default width: the unsupervised run (prepare, acoustic with a
+    checkpoint and a resume, vocoder, e2e, generate-mels, vocoder on the
+    predicted mels, export, the voice served against the CPU) and the
+    supervised one on the corpus labelled with its durations.  Measures each
+    subcommand's seconds, the acoustic loop's wall ms a step with the
+    prefetch thread beside the same steps on batches made before, and the
+    device busy share of a profiled window of the loop.  Returns (the
+    training kernels' launches in the CLI's train steps, their errors on
+    those steps' inputs, the flash kernel's errors on the served voices'
+    inputs)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from e2e_tts_tpu_torch.config import default_config
+    from e2e_tts_tpu_torch.data import (AcousticDataset, make_acoustic_batches, read_filelist,
+                                        split_train_valid)
+    from e2e_tts_tpu_torch.data.synthetic import make_sentences, write_duration_labels
+    from e2e_tts_tpu_torch.nn.variance import FeatureStats
+    from e2e_tts_tpu_torch.text.symbols import symbols
+    from e2e_tts_tpu_torch.train import (acoustic_optimizer, build_acoustic_model,
+                                         init_train_state, make_train_step)
+
+    cfg = default_config()
+    root = os.path.join(work, "corpus")  # phase 18's
+    w = os.path.join(work, "cli")
+    seconds, launches, errs = {}, {}, {}
+    text = " ".join(make_sentences(CORPUS_SENTENCES, seed=0)[:8])
+
+    # --- unsupervised: prepare -> acoustic (checkpoint, resume) -> vocoder -> e2e -> ...
+    run_cli(seconds, "prepare", ["prepare", "--corpus", root, "--workdir", w, "--overwrite"])
+    entries = read_filelist(os.path.join(w, "file_list.txt"))
+    with open(os.path.join(w, "stats.json")) as f:
+        stats = json.load(f)
+    with open(os.path.join(w, "speakers.json")) as f:
+        speakers = json.load(f)
+    train_entries, valid_entries = split_train_valid(entries, seed=cfg.train.seed)
+    valid_batches = sum(1 for _ in make_acoustic_batches(
+        AcousticDataset(valid_entries, speakers, stats, cfg), cfg.train.batch_size,
+        shuffle=False, device="cpu"))
+
+    stamps = []
+
+    def stamp(step, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    with recorded_train_inputs() as seen:
+        out, step = run_cli(seconds, "acoustic", ["acoustic", "--workdir", w, "--steps",
+                                                  str(CLI_STEPS), "--ckpt-every", str(CLI_CKPT)],
+                            stamp)
+        got = training_launches()
+    validations = CLI_STEPS // CLI_CKPT
+    expect_launches("CLI acoustic", got, {
+        "mas": CLI_STEPS + validations * valid_batches,
+        "ctc_fwd": CLI_STEPS + validations * valid_batches, "ctc_bwd": CLI_STEPS})
+    if step != CLI_STEPS or "valid_total=" not in out or len(stamps) != CLI_STEPS:
+        raise AssertionError(f"CLI acoustic: ended at step {step}, {len(stamps)} steps seen")
+    errs["acoustic"] = check_training_inputs(seen)
+    launches["acoustic"] = {k: v - validations * valid_batches * (k != "ctc_bwd")
+                            for k, v in got.items()}
+    # steps 1..4 and 5..8: the checkpoint and the validation after step 4 left out
+    prefetch_ms = (step_wall_ms(stamps, 1, CLI_CKPT) * (CLI_CKPT - 1) + step_wall_ms(
+        stamps, CLI_CKPT + 1, CLI_STEPS) * (CLI_STEPS - CLI_CKPT - 1)) / (CLI_STEPS - 2)
+
+    # the same steps on batches made before, by the same batcher in this thread
+    ds = AcousticDataset(train_entries, speakers, stats, cfg,
+                         prior_cache_dir=os.path.join(w, "priors"))
+    made, epoch = [], 0
+    while len(made) < CLI_STEPS:
+        made += timed_batches(lambda: make_acoustic_batches(
+            ds, cfg.train.batch_size, seed=cfg.train.seed + epoch, device="cuda"))
+        epoch += 1
+    model = build_acoustic_model(cfg, len(symbols), len(speakers), FeatureStats.from_dict(stats),
+                                 device="cuda", seed=cfg.train.seed)
+    opt = acoustic_optimizer(cfg.train.fastspeech2_optimizer,
+                             cfg.models.fastspeech2.encoder_hidden)
+    state = init_train_state(model, opt, seed=cfg.train.seed)
+    train_step = make_train_step(model, cfg, opt, max(cfg.models.fastspeech2.max_seq_len, 256))
+    stamps.clear()
+    for batch, _ in made[:CLI_STEPS]:
+        train_step(state, batch)
+        stamp(None, None)
+    premade_ms = (step_wall_ms(stamps, 1, CLI_CKPT) * (CLI_CKPT - 1) + step_wall_ms(
+        stamps, CLI_CKPT + 1, CLI_STEPS) * (CLI_STEPS - CLI_CKPT - 1)) / (CLI_STEPS - 2)
+    del model, opt, state, train_step
+    batch_ms = [ms for _, ms in made]
+
+    run_cli(seconds, "vocoder", ["vocoder", "--workdir", w, "--steps", "2"])
+
+    # resume at step 8; the window from the end of step 9 to that of step 10 profiled
+    window = {}
+
+    def profiled(step, metrics):
+        torch.cuda.synchronize()
+        if step == CLI_STEPS + 1:
+            window["prof"] = torch_profile(activities=[ProfilerActivity.CPU,
+                                                       ProfilerActivity.CUDA])
+            window["prof"].start()
+            window["t0"] = time.perf_counter()
+        elif step == CLI_STEPS + 2:
+            window["wall_ms"] = 1e3 * (time.perf_counter() - window["t0"])
+            window["prof"].stop()
+
+    reset_training_launches()
+    out, step = run_cli(seconds, "acoustic_resume", ["acoustic", "--workdir", w, "--steps",
+                                                     str(CLI_RESUME)], profiled)
+    if f"[acoustic] resumed from step {CLI_STEPS}" not in out or step != CLI_RESUME:
+        raise AssertionError(f"CLI acoustic did not resume at step {CLI_STEPS}: {out!r}")
+    n = CLI_RESUME - CLI_STEPS
+    expect_launches("CLI acoustic resumed", training_launches(),
+                    {"mas": n, "ctc_fwd": n, "ctc_bwd": n})
+    launches["acoustic_resume"] = training_launches()
+    busy = profile_busy(window["prof"], window["wall_ms"])
+    top = []
+    if busy is not None:
+        top = [dict(name=k[0][:80], ms=k[1], n=k[2]) for k in busy.pop("kernels")[:8]]
+        host = busy.pop("host")[:6]
+        busy["host_top"] = [dict(name=k[0][:60], ms=k[1], n=k[2]) for k in host]
+
+    e2e_steps = 2
+    with recorded_train_inputs() as seen:
+        out, step = run_cli(seconds, "e2e", ["e2e", "--workdir", w, "--steps", str(e2e_steps),
+                                             "--am-lr-scale", "0.1", "--adv-warmup", "2"])
+        got = training_launches()
+    expect_launches("CLI e2e", got, {k: e2e_steps for k in got})
+    if f"acoustic seeded from step {CLI_RESUME}" not in out or "vocoder seeded from step 2" \
+            not in out:
+        raise AssertionError(f"CLI e2e did not start from the stages' checkpoints: {out!r}")
+    errs["e2e"] = check_training_inputs(seen)
+    launches["e2e"] = got
+
+    reset_training_launches()
+    _, count = run_cli(seconds, "generate_mels", ["generate-mels", "--workdir", w])
+    mels = sorted(os.listdir(os.path.join(root, "predicted_mels")))
+    if count < len(entries) or len(mels) != len(entries):  # a batch's tail repeats rows
+        raise AssertionError(f"generate-mels wrote {count} mels ({len(mels)} files) for "
+                             f"{len(entries)} utterances")
+    gen_launches = training_launches()  # MAS once a batch: the teacher-forced aligner
+    log(f"CLI generate-mels: launches {gen_launches}")
+    out, step = run_cli(seconds, "vocoder_predicted", ["vocoder", "--workdir", w, "--steps", "3",
+                                                       "--predicted-mels"])
+    if "[vocoder] resumed from step 2" not in out or step != 3:
+        raise AssertionError(f"CLI vocoder --predicted-mels did not resume at step 2: {out!r}")
+    bundle_dir = os.path.join(work, "cli_bundle")
+    out, _ = run_cli(seconds, "export", ["export", "--workdir", w, "--output", bundle_dir])
+    if f"using e2e fine-tune step {e2e_steps}" not in out:
+        raise AssertionError(f"CLI export did not take the e2e checkpoint: {out!r}")
+    t0 = time.perf_counter()
+    lsb, flash, serve_errs = serve_cli_bundle(smi, bundle_dir, text, "CLI voice")
+    voice = dict(mean_lsb=round(lsb, 4), flash_launches=flash,
+                 serve_s=round(time.perf_counter() - t0, 2))
+
+    # --- supervised: the same corpus labelled with its durations
+    write_duration_labels(root)
+    ws = os.path.join(work, "cli_supervised")
+    sup_seconds = {}
+    reset_training_launches()
+    run_cli(sup_seconds, "prepare", ["prepare", "--corpus", root, "--workdir", ws,
+                                     "--supervised"])
+    _, step = run_cli(sup_seconds, "acoustic", ["acoustic", "--workdir", ws, "--steps",
+                                                str(CLI_SUPERVISED_STEPS), "--supervised"])
+    run_cli(sup_seconds, "vocoder", ["vocoder", "--workdir", ws, "--steps", "1"])
+    sup_bundle = os.path.join(work, "cli_supervised_bundle")
+    run_cli(sup_seconds, "export", ["export", "--workdir", ws, "--output", sup_bundle,
+                                    "--supervised"])
+    expect_launches("CLI supervised", training_launches(), {"mas": 0, "ctc_fwd": 0,
+                                                            "ctc_bwd": 0})
+    if step != CLI_SUPERVISED_STEPS:
+        raise AssertionError(f"CLI acoustic --supervised ended at step {step}")
+    t0 = time.perf_counter()
+    sup_lsb, sup_flash, sup_errs = serve_cli_bundle(smi, sup_bundle, text, "CLI supervised voice")
+    sup_voice = dict(mean_lsb=round(sup_lsb, 4), flash_launches=sup_flash,
+                     serve_s=round(time.perf_counter() - t0, 2))
+
+    log("CLI corpus to voice " + json.dumps(dict(
+        card=smi, utterances=len(entries), train=len(train_entries), valid=len(valid_entries),
+        valid_batches=valid_batches, subcommand_s=seconds, supervised_subcommand_s=sup_seconds,
+        acoustic_step_wall_ms=dict(prefetch_thread=round(prefetch_ms, 3),
+                                   premade_batches=round(premade_ms, 3),
+                                   ratio=round(prefetch_ms / premade_ms, 4),
+                                   batch_host_ms=[round(ms, 3) for ms in batch_ms],
+                                   batch_host_ms_mean=round(float(np.mean(batch_ms)), 3)),
+        profiled_window=dict(steps=[CLI_STEPS + 1, CLI_STEPS + 2], **(busy or {}), top=top),
+        launches=launches, generate_mels_launches=gen_launches, voice=voice,
+        supervised_voice=sup_voice)))
+    total = {k: sum(run[k] for run in launches.values()) for k in ("mas", "ctc_fwd", "ctc_bwd")}
+    worst = {k: max(e[k] for e in errs.values()) for k in total}
+    return total, worst, max(serve_errs, sup_errs)
 
 
 def main() -> int:
@@ -2579,11 +2865,21 @@ def main() -> int:
     log(f"bf16 serving phase: {time.perf_counter() - t0:.1f} s")
     set_estimator(eng, state)
     profile(eng, REQUESTS[-1])
-    t0 = time.perf_counter()
-    corpus_launches, corpus_errs, corpus_serve_err = corpus_to_voice(smi)
-    path_errs.append(corpus_serve_err)
-    logit_sharpness(smi)
-    log(f"corpus to voice phase: {time.perf_counter() - t0:.1f} s")
+    import shutil
+
+    work = tempfile.mkdtemp(prefix="corpus_to_voice_")
+    try:
+        t0 = time.perf_counter()
+        corpus_launches, corpus_errs, corpus_serve_err = corpus_to_voice(smi, work)
+        path_errs.append(corpus_serve_err)
+        logit_sharpness(smi)
+        log(f"corpus to voice phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cli_launches, cli_errs, cli_serve_err = cli_corpus_to_voice(smi, work)
+        path_errs.append(cli_serve_err)
+        log(f"CLI corpus to voice phase: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     kernels = []
     source = "e2e_tts_tpu_torch/kernels/csrc/flash_attention.cu"
     for name, dtypes, prefix, src, n, errs in (
@@ -2616,14 +2912,15 @@ def main() -> int:
             ("ctc_fwd", "e2e_tts_tpu/ops/ctc.py:30", train_row["ctc_library_fwd_ms"]),
             # F.ctc_loss forward and backward: no PyTorch call runs the backward alone
             ("ctc_bwd", "e2e_tts_tpu/ops/ctc.py:30", train_row["ctc_library_ms"])):
-        errs = [train_errs[name], e2e_errs[name], corpus_errs[name]] + [
+        errs = [train_errs[name], e2e_errs[name], corpus_errs[name], cli_errs[name]] + [
             r[{"mas": "mas_err", "ctc_fwd": "ctc_loss_err", "ctc_bwd": "ctc_grad_err"}[name]]
             for r in train_kernels]
         kernels.append(dict(
             name=name, route="cuda",
             source=f"e2e_tts_tpu_torch/kernels/csrc/{'mas' if name == 'mas' else 'ctc'}.cu",
             replaces=replaces,
-            launches=train_launches[name] + e2e_launches[name] + corpus_launches[name],
+            launches=(train_launches[name] + e2e_launches[name] + corpus_launches[name]
+                      + cli_launches[name]),
             max_abs_err=max(errs),
             ms=train_row[f"{name}_ms"], plain_ms=train_row[f"{name}_plain_ms"],
             bound_ms=train_row[f"{name}_bound_ms"], bound_by=train_row[f"{name}_bound_by"],

@@ -223,3 +223,27 @@ def make_synthetic_corpus(
     with open(os.path.join(root, "metadata.csv"), "w", encoding="utf8") as f:
         f.write("\n".join(rows))
     return sents
+
+
+def write_duration_labels(root: str, phonemize_fn=None) -> int:
+    """Label a corpus that ``make_synthetic_corpus`` wrote for supervised
+    (MFA-duration) training: ``metadata.lab`` (filename|speaker|phonemes)
+    and ``durations/<utterance>.txt``, each phoneme's exact frame count, in
+    the layout ``create_supervised_filelist`` reads.  The synthetic audio
+    holds every phoneme for exactly its ``_phoneme_frames``, so these are
+    the true durations, as a forced aligner's would be.  Returns the number
+    of utterances labelled."""
+    fn = phonemize_fn or (lambda s: phonemize(s, is_training=True)[0])
+    with open(os.path.join(root, "metadata.csv"), encoding="utf8") as f:
+        rows = [r.strip().split("|")[:3] for r in f if r.strip()]
+    os.makedirs(os.path.join(root, "durations"), exist_ok=True)
+    labels = []
+    for fname, speaker, text in rows:
+        phonemes = fn(text.lower())
+        labels.append(f"{fname}|{speaker}|{' '.join(phonemes)}")
+        with open(os.path.join(root, "durations", f"{os.path.splitext(fname)[0]}.txt"), "w",
+                  encoding="utf8") as f:
+            f.write(" ".join(str(_phoneme_frames(p)) for p in phonemes))
+    with open(os.path.join(root, "metadata.lab"), "w", encoding="utf8") as f:
+        f.write("\n".join(labels))
+    return len(labels)

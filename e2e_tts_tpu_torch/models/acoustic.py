@@ -41,10 +41,6 @@ class FastSpeech2(nn.Module):
                  device=None, generator: Optional[torch.Generator] = None, seed: int = 0,
                  dtype=torch.float32):
         super().__init__()
-        if not config.variance.duration_modelling.learn_alignment:
-            raise NotImplementedError(
-                "the supervised-duration predictor (ming024 style) is not ported yet "
-                "(ROADMAP.md, Queue A, A16)")
         g = generator if generator is not None else torch.Generator().manual_seed(seed)
         kw = dict(generator=g, device=resolve_device(device))
         self.config = config
@@ -64,13 +60,17 @@ class FastSpeech2(nn.Module):
         self.eval()
 
     def forward(self, speakers, texts, txt_lens, mel, mel_lens, attn_prior, pitch_target,
-                energy_target, step: int, rng: Optional[torch.Generator] = None) -> Dict:
+                energy_target, step: int, rng: Optional[torch.Generator] = None,
+                duration_target=None) -> Dict:
         """The JAX ``__call__`` with a mel target (the train and eval passes) at
         ``max_mel_len = mel.shape[1]``: returns the same dict (mel,
         postnet_mel, log_duration_prediction, duration_rounded, pitch/energy
         predictions and pooled targets, txt_mask, mel_lens, mel_mask,
         attn_soft, attn_hard, attn_logprob).  ``rng`` is used only in
-        training mode, which needs one."""
+        training mode, which needs one.  A model without the aligner
+        (``learn_alignment: false``) takes its durations from
+        ``duration_target`` (B, L) and ignores ``attn_prior`` (None will do);
+        its ``attn_*`` entries are None."""
         if not self.training:
             rng = None
         elif rng is None:
@@ -79,7 +79,7 @@ class FastSpeech2(nn.Module):
         x, txt_emb = self.encoder(texts, txt_mask, rng)
         va = self.variance_adaptor(x, txt_emb, txt_lens, txt_mask, self.speaker_emb(speakers),
                                    mel, mel_lens, attn_prior, pitch_target, energy_target, step,
-                                   rng)
+                                   rng, duration_target)
         dec, mel_mask = self.decoder(va["x"], va["mel_mask"], rng)
         mel_out = self.mel_linear(island(dec))
         postnet_out = self.postnet(mel_out, self.training, rng) + mel_out
@@ -104,7 +104,11 @@ class FastSpeech2(nn.Module):
         """Phoneme posteriorgram (B, T, n_symbols) of a mel (B, T, n_mels): the
         aligner's soft attention of each frame over the whole symbol
         inventory's raw embeddings (what the JAX version takes from its
-        encoder call), with the speaker's projections."""
+        encoder call), with the speaker's projections.  A model without the
+        aligner (``learn_alignment: false``) has none to give and raises."""
+        if self.variance_adaptor.aligner is None:
+            raise ValueError("content features come from the aligner, and a model with "
+                             "learn_alignment: false has none")
         B = mel.shape[0]
         ids = torch.arange(self.n_symbols, device=mel.device)[None]
         sym_emb = self.encoder.src_word_emb(ids).expand(B, -1, -1)

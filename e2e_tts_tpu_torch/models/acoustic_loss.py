@@ -3,9 +3,11 @@
 - mel and postnet masked L1;
 - duration MSE at phoneme, word and sentence level (word sums by a one-hot
   product);
-- alignment: forward-sum CTC (``ops/ctc.py``, the CTC kernels) and the
-  soft/hard "bin" term, ramped in from ``binarization_loss_enable_steps``
-  over ``binarization_loss_warmup_steps``;
+- alignment (with the aligner only): forward-sum CTC (``ops/ctc.py``, the
+  CTC kernels) and the soft/hard "bin" term, ramped in from
+  ``binarization_loss_enable_steps`` over ``binarization_loss_warmup_steps``;
+  supervised training (``learn_alignment=False``) has neither, and its
+  duration loss reads the given durations;
 - pitch: f0 MSE over voiced phonemes + uv BCE (use_uv), or plain MSE;
 - energy MSE.
 
@@ -95,15 +97,21 @@ def mel_losses(mel_predictions, postnet_mel_predictions, mel_targets,
 
 
 def fastspeech2_loss(outputs: Dict, mel_target, txt_lens, mel_lens, word_ids, n_words: int,
-                     step: int, loss_cfg, use_uv: bool = True) -> Dict[str, torch.Tensor]:
+                     step: int, loss_cfg, use_uv: bool = True, learn_alignment: bool = True,
+                     duration_target=None) -> Dict[str, torch.Tensor]:
     """The loss dict and its ``total`` from ``FastSpeech2.forward``'s outputs;
-    ``step`` is the training step (an int) that ramps the bin term in."""
+    ``step`` is the training step (an int) that ramps the bin term in.  The
+    duration loss reads ``duration_target`` where given, else the durations
+    the forward used; the ``ctc`` and ``bin`` terms are there only with
+    ``learn_alignment`` and an aligner's outputs."""
     txt_mask, mel_mask = outputs["txt_mask"], outputs["mel_mask"]
     losses = mel_losses(outputs["mel"], outputs["postnet_mel"], mel_target, mel_mask)
-    losses.update(duration_losses(outputs["log_duration_prediction"], outputs["duration_rounded"],
+    dur_target = duration_target if duration_target is not None else outputs["duration_rounded"]
+    losses.update(duration_losses(outputs["log_duration_prediction"], dur_target,
                                   word_ids, n_words, txt_mask, loss_cfg))
-    losses.update(align_losses(outputs["attn_soft"], outputs["attn_hard"],
-                               outputs["attn_logprob"], txt_lens, mel_lens, step, loss_cfg))
+    if learn_alignment and outputs["attn_soft"] is not None:
+        losses.update(align_losses(outputs["attn_soft"], outputs["attn_hard"],
+                                   outputs["attn_logprob"], txt_lens, mel_lens, step, loss_cfg))
     losses.update(pitch_losses(outputs["pitch_prediction"], outputs["pitch_target"], txt_mask,
                                use_uv))
     losses["energy"] = energy_loss(outputs["energy_prediction"], outputs["energy_target"], txt_mask)

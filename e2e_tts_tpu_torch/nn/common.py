@@ -170,18 +170,22 @@ class Embedding(nn.Embedding):
 
 
 class Conv1d(nn.Module):
-    """1-D convolution with the JAX package's SAME padding, which is
-    asymmetric for even effective kernels: (total // 2, total - total // 2)
-    with total = (kernel_size - 1) * dilation.  Weight (out, in, k)."""
+    """1-D convolution with the JAX package's padding: "SAME" (the default)
+    is asymmetric for even effective kernels, (total // 2, total - total // 2)
+    with total = (kernel_size - 1) * dilation; "CAUSAL" pads all of total on
+    the left, so an output sees no later input.  Weight (out, in, k)."""
 
     def __init__(self, d_in: int, d_out: int, kernel_size: int, dilation: int = 1,
                  bias: bool = True, *, generator: torch.Generator, device=None,
-                 std: Optional[float] = None, dtype=None):
+                 std: Optional[float] = None, dtype=None, padding: str = "SAME"):
         super().__init__()
         self.dilation = dilation
         self.dtype = compute_dtype(dtype)
         total = (kernel_size - 1) * dilation
-        self.pad = (total // 2, total - total // 2)
+        pads = {"SAME": (total // 2, total - total // 2), "CAUSAL": (total, 0)}
+        if padding not in pads:
+            raise ValueError(f"padding must be SAME or CAUSAL, not {padding!r}")
+        self.pad = pads[padding]
         std = 1.0 / math.sqrt(d_in * kernel_size) if std is None else std
         self.weight = nn.Parameter(_normal((d_out, d_in, kernel_size), std, generator, device))
         self.bias = nn.Parameter(torch.zeros(d_out, device=device)) if bias else None

@@ -1,9 +1,12 @@
 """Variance adaptor (port of ``e2e_tts_tpu/nn/variance.py``): corpus
-statistics, the duration predictor (espnet style, the unsupervised tree the
-shipped voices use), the pitch/energy predictors with their embeddings, the
-Gaussian-distance aligner, and the adaptor's training branch (aligner -> MAS
--> durations; targets pooled per phoneme; soft expansion through the soft
-attention before ``binarization_start_steps``, hard after).
+statistics, the duration predictor in both of the reference's styles
+(espnet, the unsupervised tree the shipped voices use; ming024, the
+supervised tree of ``learn_alignment: false``), the pitch/energy predictors
+with their embeddings, the Gaussian-distance aligner, and the adaptor's
+training branch: durations from the aligner and MAS, or given
+(``duration_target``, MFA durations); targets pooled per phoneme; with the
+aligner, soft expansion through the soft attention before
+``binarization_start_steps`` and hard after, with given durations hard.
 
 Dropout draws from the generator passed as ``rng`` (None: deterministic).
 In a 16-bit compute ``dtype`` the predictors and the aligner run in it, and
@@ -83,16 +86,19 @@ class FeatureStats:
 
 
 class ConvPredictorStack(nn.Module):
-    """N x (conv -> relu -> LayerNorm -> dropout [-> mask]) -> linear head."""
+    """N x (conv -> relu -> LayerNorm -> dropout [-> mask]) -> linear head.
+    ``padding`` other than "SAME" makes the convolutions causal, as the JAX
+    stack maps ``ffn_padding``."""
 
     def __init__(self, d_in: int, n_chans: int, n_layers: int, kernel_size: int, odim: int,
                  head_bias_init: float = 0.0, ln_eps: float = 1e-12, dropout: float = 0.5, *,
-                 generator: torch.Generator, device=None, dtype=None):
+                 padding: str = "SAME", generator: torch.Generator, device=None, dtype=None):
         super().__init__()
         kw = dict(generator=generator, device=device, dtype=dtype)
         self.dropout = dropout
         self.convs = nn.ModuleList(
-            Conv1d(d_in if i == 0 else n_chans, n_chans, kernel_size, **kw)
+            Conv1d(d_in if i == 0 else n_chans, n_chans, kernel_size,
+                   padding="SAME" if padding == "SAME" else "CAUSAL", **kw)
             for i in range(n_layers)
         )
         self.norms = nn.ModuleList(LayerNorm(n_chans, ln_eps, device=device, dtype=dtype)
@@ -108,18 +114,28 @@ class ConvPredictorStack(nn.Module):
 
 
 class DurationPredictor(nn.Module):
-    """Log-domain duration predictor, espnet style: n_chans = n_mels, masks
-    between layers, LayerNorm eps 1e-12, head bias log(5 + 1)."""
+    """Log-domain duration predictor with head bias log(5 + 1), in one of the
+    reference's two styles: "espnet" (the unsupervised tree: n_chans = n_mels,
+    masks between layers, LayerNorm eps 1e-12) or "ming024" (the supervised
+    tree: n_chans = filter_size, no mask between layers, eps 1e-5).  The
+    output is masked in both."""
 
     def __init__(self, d_in: int, n_chans: int, n_layers: int = 2, kernel_size: int = 3,
-                 dropout: float = 0.5, *, generator: torch.Generator, device=None, dtype=None):
+                 dropout: float = 0.5, padding: str = "SAME", style: str = "espnet", *,
+                 generator: torch.Generator, device=None, dtype=None):
         super().__init__()
+        if style not in ("espnet", "ming024"):
+            raise ValueError(f"duration predictor style must be espnet or ming024, not {style!r}")
+        self.mask_between = style == "espnet"
         self.stack = ConvPredictorStack(d_in, n_chans, n_layers, kernel_size, 1,
-                                        head_bias_init=1.7918, ln_eps=1e-12, dropout=dropout,
-                                        generator=generator, device=device, dtype=dtype)
+                                        head_bias_init=1.7918,
+                                        ln_eps=1e-12 if self.mask_between else 1e-5,
+                                        dropout=dropout, padding=padding, generator=generator,
+                                        device=device, dtype=dtype)
 
     def forward(self, x, mask, rng: Optional[torch.Generator] = None):
-        return (self.stack(x, mask, rng) * mask[..., None])[..., 0]
+        out = self.stack(x, mask if self.mask_between else None, rng)
+        return (out * mask[..., None])[..., 0]
 
 
 class VariancePredictor(nn.Module):
@@ -191,13 +207,13 @@ def _bins(lo: float, hi: float, n: int, log: bool) -> np.ndarray:
 
 
 class VarianceAdaptor(nn.Module):
-    """Duration + phoneme- or frame-level pitch/energy, and the aligner."""
+    """Duration + phoneme- or frame-level pitch/energy, and the aligner where
+    ``dm.learn_alignment`` (``aligner`` is None without it: the durations
+    come from the batch)."""
 
     def __init__(self, n_mel_channels: int, hidden_dim: int, stats: FeatureStats, vp, ve, dm, *,
                  generator: torch.Generator, device=None, dtype=None):
         super().__init__()
-        if vp.ffn_padding != "SAME":
-            raise NotImplementedError("only SAME predictor padding is ported")
         kw = dict(generator=generator, device=device, dtype=dtype)
         self.stats = stats
         self.predictor_grad = vp.predictor_grad
@@ -206,11 +222,18 @@ class VarianceAdaptor(nn.Module):
         self.energy_feature = ve.energy_feature
         self.pitch_log = ve.pitch_quantization == "log"
         self.binarization_start_steps = dm.binarization_start_steps
-        self.duration_predictor = DurationPredictor(
-            hidden_dim, n_mel_channels, vp.dur_predictor_layers, vp.dur_predictor_kernel,
-            vp.dropout, **kw)
-        self.aligner = AlignmentEncoder(hidden_dim, n_mel_channels, n_mel_channels,
-                                        dm.aligner_temperature, **kw)
+        # each reference tree has its own duration predictor: follow the mode's
+        if dm.learn_alignment:
+            self.duration_predictor = DurationPredictor(
+                hidden_dim, n_mel_channels, vp.dur_predictor_layers, vp.dur_predictor_kernel,
+                vp.dropout, vp.ffn_padding, "espnet", **kw)
+            self.aligner = AlignmentEncoder(hidden_dim, n_mel_channels, n_mel_channels,
+                                            dm.aligner_temperature, **kw)
+        else:
+            self.duration_predictor = DurationPredictor(
+                hidden_dim, vp.filter_size, 2, vp.dur_predictor_kernel, vp.dropout,
+                vp.ffn_padding, "ming024", **kw)
+            self.aligner = None
         self.pitch_predictor = VariancePredictor(
             hidden_dim, vp.filter_size, vp.pit_predictor_layers, vp.pit_predictor_kernel,
             2 if ve.use_uv else 1, vp.dropout, **kw)
@@ -268,18 +291,28 @@ class VarianceAdaptor(nn.Module):
 
     def forward(self, x, txt_emb, txt_lens, txt_mask, spk_emb, mel, mel_lens, attn_prior,
                 pitch_target, energy_target, step: int,
-                rng: Optional[torch.Generator] = None) -> Dict:
+                rng: Optional[torch.Generator] = None, duration_target=None) -> Dict:
         """The JAX adaptor's ``__call__`` with a mel target (the train and eval
-        passes): the aligner and MAS give the durations, the targets are
-        pooled per phoneme where the features are, and the phonemes expand
-        through the soft attention before ``binarization_start_steps``, by
-        the hard durations after."""
+        passes): the durations are ``duration_target`` (B, L) where given,
+        else the aligner's through MAS; the targets are pooled per phoneme
+        where the features are; with the aligner's durations the phonemes
+        expand through the soft attention before ``binarization_start_steps``
+        and by the hard durations after, with given durations by those.
+        ``attn_soft``, ``attn_hard`` and ``attn_logprob`` are None without
+        the aligner."""
         x = x + spk_emb[:, None, :]
         log_duration_prediction = self.duration_predictor(
             grad_scale(x, self.predictor_grad), txt_mask, rng)
-        attn_soft, attn_logprob = self.aligner(mel, txt_emb, txt_mask, attn_prior, spk_emb)
-        attn_hard = monotonic_align(attn_soft, txt_lens, mel_lens)
-        duration_rounded = attn_hard.sum(dim=1)
+        attn_soft = attn_hard = attn_logprob = None
+        if duration_target is not None:
+            duration_rounded = duration_target
+        elif self.aligner is None:
+            raise ValueError("a model without the aligner (learn_alignment: false) trains on "
+                             "given durations: pass duration_target")
+        else:
+            attn_soft, attn_logprob = self.aligner(mel, txt_emb, txt_mask, attn_prior, spk_emb)
+            attn_hard = monotonic_align(attn_soft, txt_lens, mel_lens)
+            duration_rounded = attn_hard.sum(dim=1)
         dur_int = duration_rounded.to(torch.int32)
         T = mel.shape[1]
 
@@ -300,7 +333,8 @@ class VarianceAdaptor(nn.Module):
             x, pitch_prediction, energy_prediction = self.add_prosody(
                 x, "phoneme_level", (pitch_target, energy_target), rng=rng)
 
-        if step < self.binarization_start_steps:  # soft expansion while the aligner warms up
+        if attn_soft is not None and step < self.binarization_start_steps:
+            # soft expansion while the aligner warms up
             x = torch.einsum("btl,blh->bth", attn_soft, x)
         else:
             x, _, _ = regulate_length(x, dur_int, T)

@@ -13,6 +13,7 @@ from .optim import (
     NoamAdam,
     ScheduledAdam,
     acoustic_optimizer,
+    e2e_optimizers,
     exponential_decay,
     gan_optimizer,
     noam_schedule,

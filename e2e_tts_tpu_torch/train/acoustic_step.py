@@ -41,7 +41,7 @@ class AcousticBatch(NamedTuple):
     mel: torch.Tensor              # (B, T, n_mels)
     mel_lens: torch.Tensor         # (B,)
     attn_prior: torch.Tensor       # (B, T, L)
-    duration_target: torch.Tensor  # (B, L), zeros: the aligner gives durations
+    duration_target: torch.Tensor  # (B, L): MFA durations; zeros where the aligner gives them
     f0: torch.Tensor               # (B, T)
     uv: torch.Tensor               # (B, T)
     pitch: torch.Tensor            # (B, T)
@@ -106,13 +106,30 @@ def _check_supported(config) -> None:
             "remat_blocks is not ported yet (ROADMAP.md, Queue A, A15)")
 
 
+def forward_inputs(config, batch: AcousticBatch) -> dict:
+    """The keyword inputs of ``FastSpeech2.forward`` from a batch as the JAX
+    steps choose them: pitch as {f0, uv} or the pitch contour (``use_uv``),
+    and the aligner's prior or, without the aligner (``learn_alignment:
+    false``), the batch's durations."""
+    v = config.models.fastspeech2.variance
+    kw = dict(pitch_target={"f0": batch.f0, "uv": batch.uv} if v.variance_embedding.use_uv
+              else batch.pitch, energy_target=batch.energy, attn_prior=None)
+    if v.duration_modelling.learn_alignment:
+        kw["attn_prior"] = batch.attn_prior
+    else:
+        kw["duration_target"] = batch.duration_target
+    return kw
+
+
 def _losses(model, config, batch: AcousticBatch, step: int, n_words: int, rng=None):
-    ve = config.models.fastspeech2.variance.variance_embedding
-    pitch = {"f0": batch.f0, "uv": batch.uv} if ve.use_uv else batch.pitch
+    v = config.models.fastspeech2.variance
+    learn_alignment = v.duration_modelling.learn_alignment
     out = model(batch.speakers, batch.texts, batch.txt_lens, batch.mel, batch.mel_lens,
-                batch.attn_prior, pitch, batch.energy, step, rng)
+                step=step, rng=rng, **forward_inputs(config, batch))
     return fastspeech2_loss(out, batch.mel, batch.txt_lens, batch.mel_lens, batch.word_ids,
-                            n_words, step, config.train.fastspeech2_loss, use_uv=ve.use_uv)
+                            n_words, step, config.train.fastspeech2_loss,
+                            use_uv=v.variance_embedding.use_uv, learn_alignment=learn_alignment,
+                            duration_target=None if learn_alignment else batch.duration_target)
 
 
 def make_train_step(model: FastSpeech2, config, optimizer: ScheduledAdam, n_words: int):

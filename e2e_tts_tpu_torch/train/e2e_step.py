@@ -2,7 +2,8 @@
 ``e2e_tts_tpu/train/e2e_step.py``), eager PyTorch on one device.
 
 acoustic forward (training mode, its aligner: MAS and the forward-sum CTC
-through their kernels on CUDA) -> predicted mel -> a random aligned segment
+through their kernels on CUDA; or, with ``learn_alignment: false``, the
+batch's durations and no aligner) -> predicted mel -> a random aligned segment
 of ``segment_frames`` frames -> HiFi-GAN -> waveform.  The acoustic model and
 the generator are updated together, the gradient of the GAN terms flowing
 through the vocoder into the acoustic model, against the discriminators as
@@ -20,7 +21,7 @@ import torch
 from ..audio.mel import MelParams
 from ..models.acoustic_loss import fastspeech2_loss
 from ..nn.discriminators import build_discriminators
-from .acoustic_step import AcousticBatch, _check_supported
+from .acoustic_step import AcousticBatch, _check_supported, forward_inputs
 from .optim import AdamState, ScheduledAdam
 from .vocoder_step import (MEL_LOSS_WEIGHT, _grads, discriminator_params,
                            gan_discriminator_losses, gan_generator_losses)
@@ -95,6 +96,7 @@ def make_e2e_train_step(model, generator, config, am_optimizer: ScheduledAdam,
     mel_params = MelParams.from_config(config.audio, loss=True)
     hop = config.audio.stft.hop_length
     use_uv = config.models.fastspeech2.variance.variance_embedding.use_uv
+    learn_alignment = config.models.fastspeech2.variance.duration_modelling.learn_alignment
     loss_cfg = config.train.fastspeech2_loss
     am_params = list(model.parameters())
     g_params = list(generator.parameters())
@@ -103,11 +105,11 @@ def make_e2e_train_step(model, generator, config, am_optimizer: ScheduledAdam,
     def train_step(state: E2EState, batch: E2EBatch, starts: Optional[torch.Tensor] = None):
         a = batch.acoustic
         model.train()
-        pitch = {"f0": a.f0, "uv": a.uv} if use_uv else a.pitch
-        out = model(a.speakers, a.texts, a.txt_lens, a.mel, a.mel_lens, a.attn_prior, pitch,
-                    a.energy, state.step, state.rng)
+        out = model(a.speakers, a.texts, a.txt_lens, a.mel, a.mel_lens, step=state.step,
+                    rng=state.rng, **forward_inputs(config, a))
         var = fastspeech2_loss(out, a.mel, a.txt_lens, a.mel_lens, a.word_ids, n_words,
-                               state.step, loss_cfg, use_uv=use_uv)
+                               state.step, loss_cfg, use_uv=use_uv,
+                               learn_alignment=learn_alignment)
         if starts is None:
             starts = crop_starts(a.mel_lens, segment_frames, state.rng)
         mel_seg, audio_seg = crop(out["postnet_mel"], batch.audio, starts, segment_frames, hop)

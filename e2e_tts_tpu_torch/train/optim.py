@@ -8,8 +8,10 @@ Each is the JAX package's optax chain written out on torch tensors:
 ``clip_by_global_norm`` (scaled by max_norm / norm where the global norm is
 not below max_norm), ``scale_by_adam`` (bias-corrected, eps outside the
 square root), ``add_decayed_weights`` when weight_decay is set,
-``scale_by_schedule`` (the schedule read at the update count, from 0) and
-``scale(-1)``.  The moments are float32 tensors beside each parameter; the
+``scale_by_schedule`` (the schedule read at the update count, from 0),
+``scale(-1)`` and, where ``scale`` is given, optax's ``scale(scale)`` last
+(``e2e_optimizers``: the joint fine-tune's acoustic and discriminator
+optimizers).  The moments are float32 tensors beside each parameter; the
 parameters are updated in place, by multi-tensor (``_foreach``) ops.  The
 order of the float operations differs from optax's in the last bit (a
 product by max_norm / norm, fused adds).
@@ -50,18 +52,19 @@ class AdamState:
 
 
 class ScheduledAdam:
-    """Clip -> Adam -> (weight decay) -> schedule -> descend, as optax chains
-    them.  The clip's global norm runs over every tensor given to one
+    """Clip -> Adam -> (weight decay) -> schedule -> descend (-> scale), as
+    optax chains them.  The clip's global norm runs over every tensor given to one
     ``apply``: for the discriminators, MPD's and MSD's together.  ``init(params)`` makes the state; ``apply(params, grads, state)``
     updates the parameters in place and returns the global norm of ``grads``
     (before clipping) as a device scalar, with no host sync."""
 
     def __init__(self, schedule: Callable[[int], float], b1: float, b2: float, eps: float,
-                 max_norm: float, weight_decay: float = 0.0):
+                 max_norm: float, weight_decay: float = 0.0, scale: float = 1.0):
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.max_norm = max_norm
         self.weight_decay = weight_decay
+        self.scale = scale
 
     def init(self, params: Sequence[torch.Tensor]) -> AdamState:
         return AdamState(0, [torch.zeros_like(p) for p in params],
@@ -90,7 +93,7 @@ class ScheduledAdam:
         torch._foreach_div_(u, denom)
         if self.weight_decay:
             torch._foreach_add_(u, params, alpha=self.weight_decay)
-        torch._foreach_mul_(u, self.schedule(state.count))
+        torch._foreach_mul_(u, self.schedule(state.count) * self.scale)
         torch._foreach_sub_(params, u)
         state.count = count
         return norm
@@ -126,3 +129,18 @@ def gan_optimizer(cfg, decay_gamma: float = 0.999) -> ScheduledAdam:
     not read here."""
     return ScheduledAdam(exponential_decay(cfg.learning_rate, decay_gamma), cfg.betas[0],
                          cfg.betas[1], cfg.eps, cfg.grad_clip_thresh)
+
+
+def e2e_optimizers(config, am_scale: float = 1.0, d_scale: float = 1.0):
+    """(acoustic, generator, discriminator) optimizers of the joint e2e
+    fine-tune: the acoustic model's Noam Adam with its updates scaled by
+    ``am_scale``, the generator's GAN Adam, and the discriminators' with
+    theirs scaled by ``d_scale`` (optax's ``chain(..., scale(s))`` in the JAX
+    package).  The scale is a number on the optimizer, not state: an e2e
+    checkpoint holds the same tree whatever the scales were."""
+    am = acoustic_optimizer(config.train.fastspeech2_optimizer,
+                            config.models.fastspeech2.encoder_hidden)
+    am.scale = am_scale
+    d = gan_optimizer(config.train.hifigan_optimizer)
+    d.scale = d_scale
+    return am, gan_optimizer(config.train.hifigan_optimizer), d

@@ -1,2 +1,3 @@
-from .logging import ServeLogger
+from .logging import AcousticLogger, E2ELogger, ScalarWriter, ServeLogger
+from .prefetch import prefetch_iterator
 from .storage import HttpStorage, LocalStorage, default_storage

@@ -1,8 +1,10 @@
 """The port on the card: its CUDA kernels against their plain PyTorch
 versions, its audio ops on CUDA against the CPU, the batching queue on a
 small CUDA engine, one train step and two joint acoustic + vocoder steps
-that launch the training kernels, a vocoder GAN step against the CPU, and
-data preparation: a synthetic corpus's features on the card against the
+that launch the training kernels, a supervised train step (no aligner)
+against the CPU, the training CLI refusing to start without a card unless
+given ``--device cpu``, a vocoder GAN step against the CPU, and data
+preparation: a synthetic corpus's features on the card against the
 CPU (log-mel MAE < 1e-4, energy max < 2e-2, f0 and pitch equal) and one
 default-width train step on a bucketed batch of it.
 
@@ -457,6 +459,110 @@ def test_train_step_launches_the_training_kernels(cuda):
     torch.cuda.synchronize()
     assert (mas.launches, ctc_fwd.launches, ctc_bwd.launches) == tuple(n + 1 for n in before)
     assert all(torch.isfinite(v).item() for v in metrics.values())
+
+
+def test_supervised_train_step_on_cuda_matches_cpu(cuda):
+    """One train step of a small supervised model (``learn_alignment: false``,
+    causal duration-predictor padding, durations from the batch, dropout off)
+    on the card against the same weights and batch on the CPU, cuDNN's TF32
+    off: each metric within 1e-4 relative, the gradients (Adam's first
+    moments) within 1e-3 relative norm; no MAS or CTC launch, no ctc term."""
+    import copy
+
+    from e2e_tts_tpu_torch.config import default_config
+    from e2e_tts_tpu_torch.kernels.ctc import ctc_bwd, ctc_fwd
+    from e2e_tts_tpu_torch.kernels.mas import mas
+    from e2e_tts_tpu_torch.train import (AcousticBatch, acoustic_optimizer, build_acoustic_model,
+                                         init_train_state, make_train_step)
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = default_config()
+    fs2 = cfg.models.fastspeech2
+    v = fs2.variance
+    fs2 = fs2.replace(
+        encoder_layers=2, decoder_layers=2, encoder_hidden=64, decoder_hidden=64,
+        building_block=fs2.building_block.replace(
+            transformer=fs2.building_block.transformer.replace(conv_filter_size=128)),
+        variance=v.replace(
+            variance_predictor=v.variance_predictor.replace(filter_size=32, ffn_padding="CAUSAL"),
+            duration_modelling=v.duration_modelling.replace(learn_alignment=False)),
+        postnet=fs2.postnet.replace(embedding_dim=64, conv_layers=3))
+    cfg = cfg.replace(models=cfg.models.replace(fastspeech2=fs2))
+    model = build_acoustic_model(cfg, 40, 2, dropout=False, device="cpu")
+    rng = np.random.RandomState(61)
+    B, L, T = 3, 20, 90
+    tl = np.array([20, 13, 7])
+    arrays = [np.arange(B) % 2, np.zeros((B, L), np.int64), tl, np.zeros((B, L), np.int64),
+              np.zeros((B, T, 80), np.float32), np.zeros(B, np.int64),
+              np.zeros((B, T, L), np.float32), np.zeros((B, L), np.float32)] + [
+        np.zeros((B, T), np.float32) for _ in range(4)]
+    for b in range(B):
+        d = rng.randint(1, 5, tl[b])
+        arrays[1][b, :tl[b]] = rng.randint(1, 40, tl[b])
+        arrays[3][b, :tl[b]] = np.arange(tl[b])
+        arrays[5][b] = ml = d.sum()
+        arrays[7][b, :tl[b]] = d
+        arrays[4][b, :ml] = rng.randn(ml, 80) - 4.0
+        for k in (8, 10, 11):
+            arrays[k][b, :ml] = rng.randn(ml)
+        arrays[9][b, :ml] = rng.rand(ml) < 0.3
+    out = {}
+    before = (mas.launches, ctc_fwd.launches, ctc_bwd.launches)
+    for device in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(device)
+        opt = acoustic_optimizer(cfg.train.fastspeech2_optimizer, 64)
+        state = init_train_state(m, opt)
+        out[device] = make_train_step(m, cfg, opt, 32)(state, AcousticBatch.from_numpy(arrays,
+                                                                                        device))
+    torch.cuda.synchronize()
+    assert (mas.launches, ctc_fwd.launches, ctc_bwd.launches) == before
+    (s_c, m_c), (s_g, m_g) = out["cpu"], out["cuda"]
+    assert "ctc" not in m_g and sorted(m_g) == sorted(m_c)
+    for k, val in m_c.items():
+        assert abs(m_g[k].item() - val.item()) <= 1e-4 * abs(val.item()), k
+    for name, c, g in zip([n for n, _ in model.named_parameters()], s_c.opt_state.mu,
+                          s_g.opt_state.mu):
+        if name.endswith("slf_attn.w_k.bias") or (name.startswith("postnet.convs.")
+                                                   and name.endswith(".bias")):
+            continue  # 0 by construction: float noise on both
+        assert ((g.cpu() - c).norm() / c.norm().clamp(min=1e-30)).item() < 1e-3, name
+
+
+def test_cli_refuses_to_start_without_cuda(cuda, tmp_path):
+    """``python -m e2e_tts_tpu_torch.train.cli acoustic`` with no card visible
+    exits with an error that names CUDA, before any work; with
+    ``--device cpu`` it runs (here: zero steps of a tiny model)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from e2e_tts_tpu_torch.config import default_config, save_config
+
+    cfg = default_config()
+    fs2 = cfg.models.fastspeech2
+    cfg = cfg.replace(models=cfg.models.replace(fastspeech2=fs2.replace(
+        encoder_layers=1, decoder_layers=1, encoder_hidden=32, decoder_hidden=32,
+        building_block=fs2.building_block.replace(
+            transformer=fs2.building_block.transformer.replace(conv_filter_size=32)),
+        postnet=fs2.postnet.replace(embedding_dim=32, conv_layers=2))))
+    save_config(cfg, str(tmp_path / "config.yaml"))
+    w = tmp_path / "work"
+    w.mkdir()
+    (w / "file_list.txt").write_text("")
+    (w / "stats.json").write_text(json.dumps({}))
+    (w / "speakers.json").write_text(json.dumps({"spk": 0}))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    argv = [sys.executable, "-m", "e2e_tts_tpu_torch.train.cli", "acoustic", "--workdir", str(w),
+            "--config", str(tmp_path / "config.yaml"), "--steps", "0"]
+    refused = subprocess.run(argv, cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+    assert refused.returncode != 0 and "CUDA" in refused.stderr
+    assert not (w / "acoustic_ckpt").exists()
+    ran = subprocess.run(argv + ["--device", "cpu"], cwd=repo, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert ran.returncode == 0, ran.stderr
+    assert "[acoustic] done at step 0" in ran.stdout and (w / "acoustic_ckpt" / "0").is_dir()
 
 
 TINY_GEN = dict(upsample_initial_channel=16, resblock_kernel_sizes=(3,),

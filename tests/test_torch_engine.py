@@ -331,32 +331,16 @@ def test_device_none_without_cuda_raises():
 
 
 def test_port_imports_no_jax():
-    modules = ["e2e_tts_tpu_torch.serve.engine", "e2e_tts_tpu_torch.serve.bundle",
-               "e2e_tts_tpu_torch.convert", "e2e_tts_tpu_torch.kernels.build",
-               "e2e_tts_tpu_torch.kernels.flash_attention", "e2e_tts_tpu_torch.text.frontends",
-               "e2e_tts_tpu_torch.audio", "e2e_tts_tpu_torch.serve.streaming",
-               "e2e_tts_tpu_torch.serve.queue", "e2e_tts_tpu_torch.serve.inference",
-               "e2e_tts_tpu_torch.serve.audio_post", "e2e_tts_tpu_torch.models.denoiser",
-               "e2e_tts_tpu_torch.utils", "e2e_tts_tpu_torch.serve",
-               "e2e_tts_tpu_torch.train.acoustic_step", "e2e_tts_tpu_torch.train.optim",
-               "e2e_tts_tpu_torch.ops.mas", "e2e_tts_tpu_torch.ops.ctc",
-               "e2e_tts_tpu_torch.kernels.mas", "e2e_tts_tpu_torch.kernels.ctc",
-               "e2e_tts_tpu_torch.models.acoustic_loss", "e2e_tts_tpu_torch.audio.features",
-               "e2e_tts_tpu_torch.nn.discriminators", "e2e_tts_tpu_torch.train.vocoder_step",
-               "e2e_tts_tpu_torch.train.e2e_step", "e2e_tts_tpu_torch.train",
-               "e2e_tts_tpu_torch.nn.common", "e2e_tts_tpu_torch.nn.transformer",
-               "e2e_tts_tpu_torch.nn.variance", "e2e_tts_tpu_torch.nn.postnet",
-               "e2e_tts_tpu_torch.nn.hifigan", "e2e_tts_tpu_torch.models.blocks",
-               "e2e_tts_tpu_torch.models.acoustic", "e2e_tts_tpu_torch.models.vocoder",
-               "e2e_tts_tpu_torch.ops.pitch", "e2e_tts_tpu_torch.ops.length_regulator",
-               "e2e_tts_tpu_torch.audio.mel", "e2e_tts_tpu_torch.data",
-               "e2e_tts_tpu_torch.data.synthetic", "e2e_tts_tpu_torch.data.filelist",
-               "e2e_tts_tpu_torch.data.audio_prep", "e2e_tts_tpu_torch.data.features",
-               "e2e_tts_tpu_torch.data.mfa", "e2e_tts_tpu_torch.data.dataset",
-               "e2e_tts_tpu_torch.native", "e2e_tts_tpu_torch.native.build",
-               "e2e_tts_tpu_torch.train.checkpoint"]
+    """Every module of the port, found by ``pkgutil.walk_packages`` (so a new
+    module is covered when it is added), imports in a fresh interpreter
+    without jax, flax or the JAX package."""
     # the f0 trackers run too: the native YIN must be the port's own library
-    code = (f"import sys, {', '.join(modules)}\n"
+    code = ("import importlib, pkgutil, sys\n"
+            "import e2e_tts_tpu_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(e2e_tts_tpu_torch.__path__,\n"
+            "                                                 'e2e_tts_tpu_torch.')]\n"
+            "[importlib.import_module(n) for n in names]\n"
+            "print('\\n'.join('walked:' + n for n in names))\n"
             "import numpy as np\n"
             "from e2e_tts_tpu_torch.text.frontends import get_frontend\n"
             "from e2e_tts_tpu_torch.audio import extract_f0, extract_pitch\n"
@@ -368,10 +352,14 @@ def test_port_imports_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                          text=True, check=True, timeout=120).stdout.split()
+    walked = {m[len("walked:"):] for m in out if m.startswith("walked:")}
     assert {"e2e_tts_tpu_torch.serve.engine", "e2e_tts_tpu_torch.serve.queue",
             "e2e_tts_tpu_torch.models.denoiser", "e2e_tts_tpu_torch.train.acoustic_step",
             "e2e_tts_tpu_torch.kernels.ctc", "e2e_tts_tpu_torch.train.e2e_step",
-            "e2e_tts_tpu_torch.data.dataset", "e2e_tts_tpu_torch.train.checkpoint"} <= set(out)
+            "e2e_tts_tpu_torch.data.dataset", "e2e_tts_tpu_torch.train.checkpoint",
+            "e2e_tts_tpu_torch.train.cli", "e2e_tts_tpu_torch.utils.prefetch",
+            "e2e_tts_tpu_torch.utils.logging", "e2e_tts_tpu_torch.native.build"} <= walked
+    assert walked <= set(out)  # every walked module is loaded
     libs = {m for m in out if "libyin" in m}
     assert libs and all(m.startswith(os.path.join(REPO, "e2e_tts_tpu_torch", "native", "_build"))
                         for m in libs), libs

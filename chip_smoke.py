@@ -20,7 +20,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the event time over back-to-back calls beside the device time per call
    from ``torch.profiler`` (``device_ms``); the training kernels (MAS, the CTC
    forward and backward) at the training buckets (32, 128, 768) and (32, 256,
-   1024), ragged, with edge rows;
+   1024), ragged, with edge rows, beside their serial-depth floor (the
+   longest row's frames x one shared-memory-and-barrier round at the
+   kernels' block size, timed by a probe kernel: ``barrier_round_ns``);
 4. path parity: the default-width FastSpeech2 stages on CUDA (kernels)
    against the same weights on the CPU (plain versions);
 5. serve: ``SynthesisEngine.from_random(seed=0)`` at default width answers a
@@ -119,16 +121,36 @@ Phases, in order; any failure raises and the exit code is non-zero:
    loop's wall ms a step with its prefetch thread beside the same steps on
    batches made before, and the device busy share of one profiled step of
    the loop, beside the card's name and power limit;
-20. a JSON line of every kernel (the flash kernel's float32 form and its two
+20. block families: the conformer, fastformer, long-short transformer and
+   reformer at the default width (the schema's settings of each family, 6 +
+   6 layers at hidden 384; weights from seed 0): (a) ``from_random(seed=0,
+   config=...)`` on the card serves the four requests (request ms, the
+   busy share of the longest), each against the same weights on the CPU
+   from one bucket-estimator state: durations equal, the mel within
+   MEL_TOL, the shortest request's int16 within LSB_TOL mean (the CPU
+   engine runs its vocoder for that one only); flash launched 0 times, as
+   the JAX package's families reach no Pallas kernel; (b) phase 12's parity
+   step on 4 rows of its batch, CUDA against the CPU with its MAS-tie and
+   relu-tie replays, and the BatchNorm statistics after it within
+   TRAIN_LOSS_RTOL; one step at B = 32 with ``remat_blocks`` false and one
+   with it true, each after a warm-up (step ms, peak memory; MAS and the
+   CTC kernels once a step, held to their plain versions on the first
+   family's inputs); (c) the bfloat16 engine on the longest request against
+   the CPU in bfloat16 and float32 on its durations: the mel's mean |diff|
+   from the CPU's bfloat16 within the CPU's own bfloat16-vs-float32 gap
+   (phase 16's bar, on the mel), the log-durations at 2 x the model's own
+   error, flash 0; (d) ``prepare`` and ``acoustic`` for 2 steps through the
+   training CLI on phase 18's corpus with a conformer config;
+21. a JSON line of every kernel (the flash kernel's float32 form and its two
    16-bit kernels apart), then the JSON result as the last line.
 
-Each path that launches kernels (phases 5, 8, 9, 10, 11, 12, 14, 15, 16, 18
-and 19) is driven with the launch counts set to 0 just before it and read
+Each path that launches kernels (phases 5, 8, 9, 10, 11, 12, 14, 15, 16, 18,
+19 and 20) is driven with the launch counts set to 0 just before it and read
 just after, and each kernel is held against its plain version on the first
 inputs that path gave it (``recorded_inputs``, ``recorded_train_inputs``).  The kernels' JSON line
 counts the serving run's launches of flash attention (phase 5's of the
 float32 form, phase 16's batch-8 run's of each 16-bit kernel) and phases 12,
-14, 18 and 19's of the training kernels (19: its train steps').  From phase 6 on, the random
+14, 18, 19 and 20's of the training kernels (19 and 20: their train steps').  From phase 6 on, the random
 vocoders run with their last convolution scaled so that the waveform is at a
 speaking level (``make_audible``): the random weights alone give well under
 1 LSB.
@@ -416,7 +438,8 @@ def training_bounds(tl, ml, B, T, L):
     backward's (B, T, L + 1) gradient.  Operations at the float32 rate: 2 a
     MAS cell (an add, a max); 12 a CTC state and frame (three exp, a log and
     the adds and maxes of a three-way log-sum-exp), 4 more for the backward's
-    occupancy.  The serial depth of mel_len frames is not in these bounds."""
+    occupancy.  The serial depth of mel_len frames is not in these bounds:
+    ``check_training_kernels`` logs it beside them (``barrier_round_ns``)."""
     tl = np.asarray(tl, np.float64).clip(0, L)
     ml = np.asarray(ml, np.float64).clip(0, T)
     lens = 8.0 * B
@@ -432,6 +455,63 @@ def training_bounds(tl, ml, B, T, L):
         ctc_fwd=bound(ctc_in + 4.0 * B + lens, 12.0 * states),
         ctc_bwd=bound(ctc_in + 4.0 * B * T * (L + 1) + 8.0 * B + lens, 16.0 * states),
     )
+
+
+# One dependent round of the serial kernels' recurrence: each thread reads its
+# and its left neighbour's value of the last row in shared memory, writes its
+# own, and the block meets at __syncthreads (mas.cu and ctc.cu do that once a
+# frame).  Timed on the card, it gives the serial-depth floor of a frame.
+BARRIER_PROBE = r"""
+extern "C" __global__ void barrier_rounds(float* out, int rounds) {
+  extern __shared__ float rows[];
+  const int n = blockDim.x, j = threadIdx.x;
+  rows[j] = (float)j;
+  __syncthreads();
+  for (int i = 1; i <= rounds; ++i) {
+    const float* prev = rows + ((i - 1) & 1) * n;
+    rows[(i & 1) * n + j] = fmaxf(prev[j], j > 0 ? prev[j - 1] : -1e30f) + 1.0f;
+    __syncthreads();
+  }
+  if (j == 0) out[blockIdx.x] = rows[(rounds & 1) * n];
+}
+
+extern "C" int barrier_launch(float* out, int rounds, int blocks, int threads, void* stream) {
+  barrier_rounds<<<blocks, threads, 2 * threads * sizeof(float), (cudaStream_t)stream>>>(
+      out, rounds);
+  return (int)cudaGetLastError();
+}
+"""
+_BARRIER = {}
+
+
+def barrier_round_ns(blocks: int, threads: int, rounds: int = 4096) -> float:
+    """ns of one dependent shared-memory-and-barrier round of a block of
+    ``threads`` threads, ``blocks`` blocks at once: (t(rounds) - t(0)) /
+    rounds, each t the event time over back-to-back launches."""
+    import ctypes
+    import shutil
+
+    from e2e_tts_tpu_torch.kernels.build import _nvcc
+
+    if "lib" not in _BARRIER:
+        work = tempfile.mkdtemp(prefix="barrier_probe_")
+        src, lib = os.path.join(work, "probe.cu"), os.path.join(work, "probe.so")
+        with open(src, "w") as f:
+            f.write(BARRIER_PROBE)
+        subprocess.run([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared",
+                        "-Xcompiler", "-fPIC", "-o", lib, src], check=True)
+        _BARRIER["lib"] = ctypes.CDLL(lib)
+        shutil.rmtree(work, ignore_errors=True)  # the library stays mapped
+    fn = _BARRIER["lib"].barrier_launch
+    out = torch.empty(blocks, device="cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def run(n):
+        if fn(ctypes.c_void_p(out.data_ptr()), n, blocks, threads, stream) != 0:
+            raise RuntimeError("the barrier probe did not launch")
+
+    t = {n: time_ms(lambda n=n: run(n)) for n in (0, rounds)}
+    return 1e6 * (t[rounds] - t[0]) / rounds
 
 
 def check_mas(la, tl, ml, where: str) -> float:
@@ -529,6 +609,14 @@ def check_training_kernels():
         )
         for name, (ms, by) in training_bounds(tl_np, ml_np, B, T, L).items():
             row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = ms, by
+        # serial depth: the longest row's frames, one barrier round each, at
+        # the kernels' own block sizes (mas: L threads; the CTC: 2L + 1 states)
+        frames = int(ml_np.max())
+        for name, threads in (("mas", L), ("ctc_fwd", 2 * L + 1), ("ctc_bwd", 2 * L + 1)):
+            round_ns = barrier_round_ns(B, min(1024, -(-threads // 32) * 32))
+            row[f"{name}_round_ns"] = round_ns
+            row[f"{name}_serial_ms"] = frames * round_ns * 1e-6
+            row[f"{name}_half_serial"] = row[f"{name}_ms"] <= 2 * row[f"{name}_serial_ms"]
         rows.append(row)
         log("training kernels " + json.dumps({k: v for k, v in row.items()
                                               if k not in ("text_lens", "mel_lens")}))
@@ -1086,7 +1174,12 @@ TRAIN_B, TRAIN_L, TRAIN_T = 32, 128, 768  # TrainConfig.batch_size; the dataset'
 TRAIN_STEPS = 5
 TRAIN_SPEAKERS = 4
 PARITY_ROWS = 4
-ZERO_BY_CONSTRUCTION = re.compile(r"slf_attn\.w_k\.bias$|^postnet\.convs\.\d+\.bias$")
+# gradients 0 by construction (a softmax does not see a shift common to all its
+# entries; a training-mode BatchNorm subtracts the batch mean): the attention
+# key biases of the transformer and the conformer, the fastformer's pooling
+# logit biases, the postnet convolutions' biases
+ZERO_BY_CONSTRUCTION = re.compile(r"slf_attn\.w_k\.bias$|mhsa\.key_proj\.bias$|"
+                                  r"to_[qk]_attn_logits\.bias$|^postnet\.convs\.\d+\.bias$")
 
 
 def train_batch(n_symbols: int, B: int = TRAIN_B, L: int = TRAIN_L, T: int = TRAIN_T, seed: int = 0):
@@ -1257,6 +1350,7 @@ def train_parity(cfg, batch_np, n_symbols: int, n_words: int) -> None:
         worst_grad_rel_err=float(f"{err:.3g}"), worst_grad=name, grad_tensors=len(grad_errs))))
     if not err < TRAIN_GRAD_RTOL:
         raise AssertionError(f"train parity: gradient of {name} rel err {err} >= {TRAIN_GRAD_RTOL}")
+    return cpu, gpu
 
 
 @contextlib.contextmanager
@@ -2835,6 +2929,269 @@ def cli_corpus_to_voice(smi: str, work: str):
     return total, worst, max(serve_errs, sup_errs)
 
 
+# --- 20. the other block families ------------------------------------------------------------
+
+FAMILIES = ("conformer", "fastformer", "lstransformer", "reformer")
+FAMILY_CLI_STEPS = 2
+
+
+def family_config(family: str):
+    """The default config with ``block_type`` ``family`` (the schema's
+    defaults of that family at the default width)."""
+    from e2e_tts_tpu_torch.config import default_config
+
+    cfg = default_config()
+    fs2 = cfg.models.fastspeech2
+    return cfg.replace(models=cfg.models.replace(fastspeech2=fs2.replace(
+        building_block=fs2.building_block.replace(block_type=family))))
+
+
+def zero_flash_counts() -> None:
+    from e2e_tts_tpu_torch.kernels.flash_attention import flash_attention
+
+    flash_attention.launches = flash_attention.launches_16 = flash_attention.launches_16_sm90 = 0
+
+
+@contextlib.contextmanager
+def captured_mels(eng, stub: bool = False):
+    """Keep each mel batch that ``eng`` hands its vocoder (on the host, float32);
+    with ``stub`` the vocoder is not run (a silent waveform of the right
+    length comes back), for a reference engine whose waveform is not
+    compared."""
+    mels, real = [], eng._vocode
+
+    def vocode(mel):
+        mels.append(mel.float().cpu())
+        if stub:
+            return torch.zeros(mel.shape[0], mel.shape[1] * eng.hop_length, device=mel.device)
+        return real(mel)
+
+    eng._vocode = vocode
+    try:
+        yield mels
+    finally:
+        del eng._vocode
+
+
+def mel_gap(a, b) -> tuple:
+    """(max, mean) |a - b| over two lists of mel batches of one shape each."""
+    if len(a) != len(b) or any(x.shape != y.shape for x, y in zip(a, b)):
+        raise AssertionError(f"mel batches differ in shape: {[tuple(x.shape) for x in a]} vs "
+                             f"{[tuple(y.shape) for y in b]}")
+    d = torch.cat([(x - y).abs().flatten() for x, y in zip(a, b)])
+    return float(d.max()), float(d.mean())
+
+
+def family_serve(family: str, cfg) -> dict:
+    """Phase 20 (a) and (c) for one family: ``from_random(seed=0, config=...)``
+    on the card serves the four requests (timed, flash launches 0), each
+    against the same weights on the CPU (durations equal, the mel within
+    MEL_TOL; the int16 of the shortest and the longest request within
+    LSB_TOL mean: the CPU's vocoder is most of its time); the busy share
+    of the longest; then the bfloat16 engine on the longest request against
+    the CPU in bfloat16 and float32 on its durations (the mel's mean |diff|
+    from the CPU bfloat16 no more than the CPU's own bfloat16-vs-float32
+    gap, phase 16's bar on the mel; the log-durations at 2 x the model's own
+    error)."""
+    from e2e_tts_tpu_torch.serve.engine import SynthesisEngine
+
+    t0 = time.perf_counter()
+    eng = SynthesisEngine.from_random(seed=0, config=cfg)
+    cpu = SynthesisEngine.from_random(seed=0, config=cfg, device="cpu")
+    make_audible(eng, cpu)
+    for text in REQUESTS:  # warm-up pass, not counted
+        eng.synthesize(text)
+    build_s = time.perf_counter() - t0
+    state = estimator(eng)
+    zero_flash_counts()
+    rows = []
+    for text in REQUESTS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio = eng.synthesize(text)
+        sec = time.perf_counter() - t0
+        rows.append(dict(chars=len(text), audio_s=round(len(audio) / eng.sample_rate, 3),
+                         ms=round(1e3 * sec, 3), rtf=round(sec * eng.sample_rate / len(audio), 5)))
+    busy = device_busy(lambda: eng.synthesize(REQUESTS[-1]))
+
+    # each request on the card against the CPU from one bucket-estimator state
+    set_estimator(eng, state)
+    t0 = time.perf_counter()
+    worst_mel, lsb = 0.0, {}
+    for text in REQUESTS:
+        vocoded = text is REQUESTS[0] or text is REQUESTS[-1]
+        set_estimator(cpu, estimator(eng))
+        with duration_trace(eng) as d_g, captured_mels(eng) as m_g:
+            out = eng.synthesize(text)
+        with duration_trace(cpu) as d_c, captured_mels(cpu, stub=not vocoded) as m_c:
+            ref = cpu.synthesize(text)
+        if len(d_g) != len(d_c) or not all(torch.equal(a, b) for a, b in zip(d_g, d_c)):
+            raise AssertionError(f"{family} serve: durations differ from the CPU's for "
+                                 f"{text[:30]!r}")
+        worst_mel = max(worst_mel, mel_gap(m_g, m_c)[0])
+        if vocoded:
+            lsb[len(text)] = round(lsb_diff(
+                f"{family} serve parity: {len(text)} characters, CUDA vs CPU", out, ref), 4)
+    cpu_s = time.perf_counter() - t0
+    counts = flash_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{family} serving launched the flash kernels: {counts}")
+    if not worst_mel < MEL_TOL:
+        raise AssertionError(f"{family} serve: mel {worst_mel} from the CPU's (bar {MEL_TOL})")
+
+    # bfloat16: the longest request on the card against the CPU in bf16 and f32
+    text = REQUESTS[-1]
+    eng16 = SynthesisEngine.from_random(seed=0, config=cfg, dtype=torch.bfloat16)
+    cpu16 = SynthesisEngine.from_random(seed=0, config=cfg, device="cpu", dtype=torch.bfloat16)
+    eng16.synthesize(text)  # warm-up
+    state16 = estimator(eng16)
+    zero_flash_counts()
+    with duration_trace(eng16) as trace, captured_mels(eng16, stub=True) as m16:
+        eng16.synthesize(text)
+    refs = {}
+    for name, ref_eng in (("bf16", cpu16), ("f32", cpu)):
+        set_estimator(ref_eng, state16)
+        with duration_trace(ref_eng, trace) as refs[name], \
+                captured_mels(ref_eng, stub=True) as refs[name].mels:
+            ref_eng.synthesize(text)
+    counts16 = flash_counts()
+    durations16 = log_duration_parity(f"{family} bf16", trace, refs["bf16"], refs["f32"])
+    ours = mel_gap(m16, refs["bf16"].mels)
+    gap = mel_gap(refs["bf16"].mels, refs["f32"].mels)
+    if any(counts16.values()) or not ours[1] <= gap[1]:
+        raise AssertionError(f"{family} bf16: launches {counts16}; mel mean |diff| {ours[1]} "
+                             f"from the CPU's bf16, past its own bf16-vs-f32 gap {gap[1]}")
+    out = dict(build_and_warmup_s=round(build_s, 2), requests=rows,
+               busy_share_343=None if busy is None else busy["busy_share"],
+               device_busy_ms_343=None if busy is None else busy["device_busy_ms"],
+               durations_equal=True, worst_mel_vs_cpu=float(f"{worst_mel:.3g}"),
+               mean_lsb=lsb, parity_cpu_s=round(cpu_s, 2), flash_launches=counts,
+               bf16=dict(mel_vs_cpu_bf16=[float(f"{v:.3g}") for v in ours],
+                         cpu_bf16_vs_f32=[float(f"{v:.3g}") for v in gap],
+                         flash_launches=counts16, **durations16))
+    log_profile(f"{family} request ({len(REQUESTS[-1])} chars)", busy)
+    return out
+
+
+def family_training(family: str, cfg, batch_np, n_symbols: int, n_words: int):
+    """Phase 20 (b) for one family: phase 12's parity step on 4 rows, CUDA
+    against the CPU (with its MAS-tie and relu-tie replays), and the
+    BatchNorm statistics after it; then one step at B = 32 with
+    ``remat_blocks`` false and one with it true (each after a warm-up
+    step, both from seed 0): step ms and peak memory, and the two runs'
+    losses (warm-up and timed step) and buffers (BatchNorm statistics)
+    within TRAIN_LOSS_RTOL of each other.  Returns (the row, the training
+    kernels' launches in the timed steps, the recorded inputs)."""
+    from e2e_tts_tpu_torch.train import (AcousticBatch, acoustic_optimizer, build_acoustic_model,
+                                         init_train_state, make_train_step)
+
+    t0 = time.perf_counter()
+    cpu_model, gpu_model = train_parity(cfg, batch_np, n_symbols, n_words)
+    worst_stat, stat_name = 0.0, None
+    gpu_bufs = dict(gpu_model.named_buffers())
+    for name, b in cpu_model.named_buffers():
+        err = float((gpu_bufs[name].cpu() - b).norm() / b.norm().clamp(min=1e-30))
+        if err >= worst_stat:
+            worst_stat, stat_name = err, name
+    if not worst_stat < TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{family} train parity: BatchNorm statistic {stat_name} rel err "
+                             f"{worst_stat}")
+    parity_s = time.perf_counter() - t0
+    del cpu_model, gpu_model
+
+    batch = AcousticBatch.from_numpy(batch_np, "cuda")
+    row = dict(parity_s=round(parity_s, 2), worst_stat_rel_err=float(f"{worst_stat:.3g}"),
+               worst_stat=stat_name, batch=[TRAIN_B, TRAIN_T, TRAIN_L])
+    runs = {}
+    with recorded_train_inputs() as seen:
+        for remat in (False, True):
+            fs2 = cfg.models.fastspeech2.replace(remat_blocks=remat)
+            c = cfg.replace(models=cfg.models.replace(fastspeech2=fs2))
+            model = build_acoustic_model(c, n_symbols, TRAIN_SPEAKERS)
+            opt = acoustic_optimizer(c.train.fastspeech2_optimizer, fs2.encoder_hidden)
+            state = init_train_state(model, opt, seed=0)
+            step = make_train_step(model, c, opt, n_words)
+            _, warm = step(state, batch)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            key = "remat" if remat else "no_remat"
+            row[f"{key}_step_ms"] = round(1e3 * (time.perf_counter() - t0), 3)
+            row[f"{key}_peak_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 3)
+            check_finite(f"{family} step (remat {remat})", [metrics])
+            row[f"{key}_total"] = round(float(metrics["total"]), 5)
+            runs[remat] = ([float(warm["total"]), float(metrics["total"])],
+                           {n: b.detach().float().cpu() for n, b in model.named_buffers()})
+            del model, opt, state, step
+        launches = training_launches()
+    expect_launches(f"{family} train steps", launches, {k: 4 for k in launches})
+    (loss0, bufs0), (loss1, bufs1) = runs[False], runs[True]
+    for a, b in zip(loss0, loss1):
+        if not abs(a - b) <= TRAIN_LOSS_RTOL * abs(a):
+            raise AssertionError(f"{family} remat: losses {loss1} against {loss0} without")
+    for name, b in bufs0.items():
+        err = float((bufs1[name] - b).norm() / b.norm().clamp(min=1e-30))
+        if not err < TRAIN_LOSS_RTOL:
+            raise AssertionError(f"{family} remat: buffer {name} rel err {err}")
+    return row, launches, seen
+
+
+def family_cli(root: str, work: str):
+    """Phase 20 (d): ``acoustic`` for FAMILY_CLI_STEPS steps with a conformer
+    config, on the corpus of phase 18 in a fresh workdir.  Returns the
+    training kernels' launches and the recorded inputs."""
+    from e2e_tts_tpu_torch.config import save_config
+
+    w = os.path.join(work, "cli_conformer")
+    path = os.path.join(w, "conformer.yaml")
+    save_config(family_config("conformer"), path)
+    seconds = {}
+    run_cli(seconds, "prepare", ["prepare", "--corpus", root, "--workdir", w, "--config", path])
+    with recorded_train_inputs() as seen:
+        _, step = run_cli(seconds, "acoustic", [
+            "acoustic", "--workdir", w, "--config", path, "--steps", str(FAMILY_CLI_STEPS),
+            "--ckpt-every", "1000"])
+        launches = training_launches()
+    if step != FAMILY_CLI_STEPS:
+        raise AssertionError(f"CLI acoustic (conformer) ended at step {step}")
+    expect_launches("CLI acoustic (conformer)", launches,
+                    {k: FAMILY_CLI_STEPS for k in launches})
+    log("CLI conformer " + json.dumps(dict(subcommand_s=seconds)))
+    return launches, seen
+
+
+def block_families(smi: str, work: str):
+    """Phase 20: the conformer, fastformer, long-short transformer and
+    reformer at the default width (weights from seed 0): serving on the card
+    against the CPU, bfloat16, training (parity, remat), and the training
+    CLI with a conformer config.  Returns (the training kernels' launches
+    in the counted steps, their errors on the first family's inputs and the
+    CLI's)."""
+    from e2e_tts_tpu_torch.text.symbols import symbols
+
+    batch_np = train_batch(len(symbols))
+    launches = {"mas": 0, "ctc_fwd": 0, "ctc_bwd": 0}
+    errs = {}
+    for family in FAMILIES:
+        t0 = time.perf_counter()
+        cfg = family_config(family)
+        n_words = max(cfg.models.fastspeech2.max_seq_len, 256)
+        served = family_serve(family, cfg)
+        row, got, seen = family_training(family, cfg, batch_np, len(symbols), n_words)
+        launches = {k: launches[k] + got[k] for k in launches}
+        if not errs:
+            errs = check_training_inputs(seen)
+        log(f"block family {family} " + json.dumps(dict(
+            card=smi, serve=served, train=row, seconds=round(time.perf_counter() - t0, 1))))
+    got, seen = family_cli(os.path.join(work, "corpus"), work)
+    launches = {k: launches[k] + got[k] for k in launches}
+    cli_errs = check_training_inputs(seen)
+    return launches, {k: max(errs[k], cli_errs[k]) for k in errs}
+
+
+
 def main() -> int:
     smi = environment()
     build()
@@ -2878,6 +3235,9 @@ def main() -> int:
         cli_launches, cli_errs, cli_serve_err = cli_corpus_to_voice(smi, work)
         path_errs.append(cli_serve_err)
         log(f"CLI corpus to voice phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        family_launches, family_errs = block_families(smi, work)
+        log(f"block families phase: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
@@ -2912,7 +3272,8 @@ def main() -> int:
             ("ctc_fwd", "e2e_tts_tpu/ops/ctc.py:30", train_row["ctc_library_fwd_ms"]),
             # F.ctc_loss forward and backward: no PyTorch call runs the backward alone
             ("ctc_bwd", "e2e_tts_tpu/ops/ctc.py:30", train_row["ctc_library_ms"])):
-        errs = [train_errs[name], e2e_errs[name], corpus_errs[name], cli_errs[name]] + [
+        errs = [train_errs[name], e2e_errs[name], corpus_errs[name], cli_errs[name],
+                family_errs[name]] + [
             r[{"mas": "mas_err", "ctc_fwd": "ctc_loss_err", "ctc_bwd": "ctc_grad_err"}[name]]
             for r in train_kernels]
         kernels.append(dict(
@@ -2920,7 +3281,7 @@ def main() -> int:
             source=f"e2e_tts_tpu_torch/kernels/csrc/{'mas' if name == 'mas' else 'ctc'}.cu",
             replaces=replaces,
             launches=(train_launches[name] + e2e_launches[name] + corpus_launches[name]
-                      + cli_launches[name]),
+                      + cli_launches[name] + family_launches[name]),
             max_abs_err=max(errs),
             ms=train_row[f"{name}_ms"], plain_ms=train_row[f"{name}_plain_ms"],
             bound_ms=train_row[f"{name}_bound_ms"], bound_by=train_row[f"{name}_bound_by"],

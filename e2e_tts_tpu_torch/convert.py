@@ -18,6 +18,13 @@ it: where the target's names (``names``, its ``state_dict`` keys) hold
 ``<conv>.v``, as the training forms of the vocoder and the discriminators
 do, ``v`` takes the kernel's layout and ``g`` lands as it is.
 
+The block families keep flax's names as module names where no rename
+applies: the auto-names ``Dense_0``, ``Dense_1`` and ``BatchNorm_0`` (the
+auto-named ``LayerNorm_0`` becomes ``layer_norm``), the stacks' ``attn_0``,
+``ff_norm_0``, ..., and the bare parameters ``u_bias`` and ``v_bias``.  A
+module tied across layers (the fastformer's pooling projections, the
+reformer's shared layer) is one module, stored once.
+
 Every array must land on a parameter or buffer of the same shape, and every
 parameter and buffer must receive one (the acoustic model's aligner
 included); anything else raises.
@@ -26,7 +33,8 @@ The way back cannot reverse the renames: ``/Conv_0/`` -> ``/`` erases a path
 segment.  ``to_jax`` names each array from the type of the module that holds
 it instead, as the JAX package's modules name their leaves: in the acoustic
 model a ``Conv1d`` is flax's ``Conv`` inside a named wrapper
-(``<name>/Conv_0/{kernel,bias}``), a ``Linear`` a ``Dense``
+(``<name>/Conv_0/{kernel,bias}``) but a ``DepthwiseConv1d`` (the
+conformer's) is a bare ``Conv`` (``<name>/kernel``), a ``Linear`` a ``Dense``
 (``<name>/{kernel,bias}``); in a generator every convolution is weight-normed
 (``<name>/{v,g,bias}``, no ``Conv_0``).  A serving generator holds fused
 kernels and writes ``v = w`` and ``g = ||w||`` (the norm over every axis but
@@ -189,6 +197,8 @@ def _jax_leaves(module, leaf: str, arr: np.ndarray, weight_norm: bool):
                  arr.T if leaf == "weight" else arr)]
     if isinstance(module, common._WeightNorm):
         return [("params", leaf, _to_jax_layout(module, arr) if leaf == "v" else arr)]
+    if isinstance(module, common.DepthwiseConv1d):  # flax's nn.Conv itself, no Conv_0
+        return [("params", "kernel", _to_jax_layout(module, arr))]
     if isinstance(module, (common.Conv1d, common.ConvTranspose1d)):
         if leaf == "bias":
             return [("params", "bias" if weight_norm else "Conv_0/bias", arr)]

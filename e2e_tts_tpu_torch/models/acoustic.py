@@ -3,9 +3,10 @@
 ``content_features`` (the aligner's phoneme posteriorgram) and the serving
 stages ``synthesize_stage1`` and ``synthesize_stage2``.
 
-``forward`` follows the module's mode: in training mode the postnet's
-BatchNorm uses and updates batch statistics and dropout draws from ``rng``
-(a ``torch.Generator`` on the model's device); in eval mode both are off.
+``forward`` follows the module's mode: in training mode the BatchNorms (the
+postnet's, and the conformer's) use and update batch statistics and dropout
+draws from ``rng`` (a ``torch.Generator`` on the model's device); in eval
+mode both are off.
 The serving stages run under ``torch.no_grad()``.
 
 ``dtype`` is the compute dtype (``nn/common.py``; float32, bfloat16 or
@@ -76,11 +77,11 @@ class FastSpeech2(nn.Module):
         elif rng is None:
             raise ValueError("a FastSpeech2 in training mode needs a dropout generator (rng)")
         txt_mask = sequence_mask(txt_lens, texts.shape[1])
-        x, txt_emb = self.encoder(texts, txt_mask, rng)
+        x, txt_emb = self.encoder(texts, txt_mask, rng, self.training)
         va = self.variance_adaptor(x, txt_emb, txt_lens, txt_mask, self.speaker_emb(speakers),
                                    mel, mel_lens, attn_prior, pitch_target, energy_target, step,
                                    rng, duration_target)
-        dec, mel_mask = self.decoder(va["x"], va["mel_mask"], rng)
+        dec, mel_mask = self.decoder(va["x"], va["mel_mask"], rng, self.training)
         mel_out = self.mel_linear(island(dec))
         postnet_out = self.postnet(mel_out, self.training, rng) + mel_out
         return {

@@ -17,7 +17,9 @@ so a module computes in its parameters' own type: float32, or float64 after
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional
 
 import numpy as np
@@ -87,6 +89,64 @@ def dropout(x: torch.Tensor, rate: float, rng: Optional[torch.Generator]) -> tor
     keep_prob = 1.0 - rate
     keep = torch.rand(x.shape, generator=rng, device=x.device) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax's ``nn.gelu``: the tanh approximation (torch's default is the erf
+    form)."""
+    return F.gelu(x, approximate="tanh")
+
+
+_RECOMPUTE = threading.local()
+
+
+def recomputing() -> bool:
+    """True while ``remat`` recomputes a layer in the backward pass: a
+    BatchNorm then leaves its running statistics alone (the forward pass
+    moved them once already)."""
+    return getattr(_RECOMPUTE, "on", False)
+
+
+@contextlib.contextmanager
+def _recompute(rng: Optional[torch.Generator], state: Optional[torch.Tensor]):
+    before = None
+    if rng is not None:
+        before = rng.get_state()
+        rng.set_state(state)
+    was = recomputing()
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = was
+        if rng is not None:
+            rng.set_state(before)
+
+
+def remat(fn, *args, rng: Optional[torch.Generator] = None):
+    """``fn(*args)`` with its activations recomputed in the backward pass
+    instead of kept (``torch.utils.checkpoint``), as the JAX package's
+    ``nn.remat`` of a layer; without autograd a plain call.  The recompute
+    draws its dropout masks again from ``rng`` (the generator the layer
+    draws from), which is set back to its state at the forward call for the
+    recompute and restored after it, so the masks and hence the gradients
+    are the forward pass's.  torch's own ``preserve_rng_state`` covers only
+    the global generators, not an explicit one."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+
+    state = rng.get_state() if rng is not None else None
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _recompute(rng, state)))
+
+
+def run_layers(layers, recompute: bool, x, *args, rng: Optional[torch.Generator] = None):
+    """``x = layer(x, *args, rng)`` through ``layers`` in turn, each one
+    recomputed in the backward pass (``remat``) when ``recompute``."""
+    for layer in layers:
+        x = remat(layer, x, *args, rng, rng=rng) if recompute else layer(x, *args, rng)
+    return x
 
 
 def sinusoid_table(n_position: int, d_hid: int) -> np.ndarray:
@@ -189,18 +249,34 @@ class Conv1d(nn.Module):
         std = 1.0 / math.sqrt(d_in * kernel_size) if std is None else std
         self.weight = nn.Parameter(_normal((d_out, d_in, kernel_size), std, generator, device))
         self.bias = nn.Parameter(torch.zeros(d_out, device=device)) if bias else None
+        self.groups = 1
 
     def conv_ncw(self, x: torch.Tensor) -> torch.Tensor:
         """(B, C_in, T) -> (B, C_out, T)."""
-        dt = self.dtype
+        dt, groups = self.dtype, self.groups
         if dt is None:
-            return F.conv1d(F.pad(x, self.pad), self.weight, self.bias, dilation=self.dilation)
-        y = F.conv1d(F.pad(x.to(dt), self.pad), cast_param(self, "weight"), dilation=self.dilation)
+            return F.conv1d(F.pad(x, self.pad), self.weight, self.bias, dilation=self.dilation,
+                            groups=groups)
+        y = F.conv1d(F.pad(x.to(dt), self.pad), cast_param(self, "weight"),
+                     dilation=self.dilation, groups=groups)
         return _add_bias(y, cast_param(self, "bias"), (-1, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, C_in) -> (B, T, C_out)."""
         return self.conv_ncw(x.transpose(1, 2)).transpose(1, 2)
+
+
+class DepthwiseConv1d(Conv1d):
+    """A depthwise 1-D convolution, "SAME" padding, no bias: flax's bare
+    ``nn.Conv(C, (k,), feature_group_count=C, use_bias=False)`` (no
+    ``Conv_0`` wrapper, so ``convert.to_jax`` writes its ``kernel`` at the
+    module's own path).  JAX's (k, 1, C) kernel is (C, 1, k) here."""
+
+    def __init__(self, d: int, kernel_size: int, *, generator: torch.Generator, device=None,
+                 dtype=None):
+        super().__init__(1, d, kernel_size, bias=False, generator=generator, device=device,
+                         std=1.0 / math.sqrt(kernel_size), dtype=dtype)
+        self.groups = d
 
 
 class ConvTranspose1d(nn.Module):
@@ -351,7 +427,10 @@ class BatchNorm(nn.Module):
     ``ra = 0.99 ra + 0.01 stat`` (torch's BatchNorm1d uses momentum 0.1 and
     the unbiased variance); without, it uses the running statistics.  The
     flag is an argument, as flax's ``use_running_average``, so that serving
-    never touches the statistics whatever the module's mode."""
+    never touches the statistics whatever the module's mode.  ``channels_last``
+    takes (B, T, C), as flax's default layout, normalising over every axis
+    but the features (padded frames included).  While ``remat`` recomputes
+    a layer the running statistics stay as the forward pass left them."""
 
     MOMENTUM = 0.99
 
@@ -363,15 +442,18 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(d, device=device))
         self.register_buffer("running_var", torch.ones(d, device=device))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                channels_last: bool = False) -> torch.Tensor:
+        dims, view = ((0, 1), (1, 1, -1)) if channels_last else ((0, 2), (1, -1, 1))
         if train:
-            mean = x.mean(dim=(0, 2))
-            var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.MOMENTUM
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            mean = x.mean(dim=dims)
+            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            if not recomputing():
+                with torch.no_grad():
+                    m = self.MOMENTUM
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[None, :, None]) * mul[None, :, None] + self.bias[None, :, None]
+        return (x - mean.view(view)) * mul.view(view) + self.bias.view(view)

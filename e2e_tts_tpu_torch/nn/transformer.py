@@ -16,6 +16,7 @@ autograd records raises, as the JAX package's does, and training runs the
 plain branch.
 Dropout (after ``fc`` and after ``w_2``) draws from the generator passed as
 ``rng``; ``rng=None`` is deterministic.  Masks are True = valid and multiply.
+``remat`` recomputes each block in the backward pass (``common.remat``).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from torch import nn
 
 from ..kernels import flash_attention
 from .common import (Conv1d, Embedding, LayerNorm, Linear, cast, compute_dtype, dropout, island,
-                     sinusoid_table)
+                     run_layers, sinusoid_table)
 
 NEG_INF = -1e9
 FLASH_MIN_LEN = 256
@@ -130,9 +131,10 @@ class TransformerEncoder(nn.Module):
     def __init__(self, n_symbols: int, n_layers: int, d_model: int, n_head: int,
                  d_inner: int, kernel_sizes: Tuple[int, int] = (9, 1),
                  use_flash: bool = False, dropout: float = 0.1, *, generator: torch.Generator,
-                 device=None, dtype=None):
+                 device=None, dtype=None, remat: bool = False):
         super().__init__()
         kw = dict(generator=generator, device=device, dtype=dtype)
+        self.remat = remat
         self.src_word_emb = Embedding(n_symbols + 1, d_model, std=1.0, zero_row0=True, **kw)
         self.layers = nn.ModuleList(
             FFTBlock(d_model, n_head, d_inner, kernel_sizes, use_flash, dropout, **kw)
@@ -140,12 +142,11 @@ class TransformerEncoder(nn.Module):
         )
         self._pos = _Positions(d_model, compute_dtype(dtype))
 
-    def forward(self, token_ids, mask, rng: Optional[torch.Generator] = None):
+    def forward(self, token_ids, mask, rng: Optional[torch.Generator] = None,
+                train: bool = False):
         emb = self.src_word_emb(token_ids)
         x = (emb + self._pos(token_ids.shape[1], emb.device)[None]) * mask[..., None]
-        for layer in self.layers:
-            x = layer(x, mask, rng)
-        return x, emb
+        return run_layers(self.layers, self.remat, x, mask, rng=rng), emb
 
 
 class TransformerDecoder(nn.Module):
@@ -153,17 +154,17 @@ class TransformerDecoder(nn.Module):
 
     def __init__(self, n_layers: int, d_model: int, n_head: int, d_inner: int,
                  kernel_sizes: Tuple[int, int] = (9, 1), use_flash: bool = False,
-                 dropout: float = 0.1, *, generator: torch.Generator, device=None, dtype=None):
+                 dropout: float = 0.1, *, generator: torch.Generator, device=None, dtype=None,
+                 remat: bool = False):
         super().__init__()
         kw = dict(generator=generator, device=device, dtype=dtype)
+        self.remat = remat
         self.layers = nn.ModuleList(
             FFTBlock(d_model, n_head, d_inner, kernel_sizes, use_flash, dropout, **kw)
             for _ in range(n_layers)
         )
         self._pos = _Positions(d_model, compute_dtype(dtype))
 
-    def forward(self, x, mask, rng: Optional[torch.Generator] = None):
+    def forward(self, x, mask, rng: Optional[torch.Generator] = None, train: bool = False):
         x = (cast(x, self._pos.dtype) + self._pos(x.shape[1], x.device)[None]) * mask[..., None]
-        for layer in self.layers:
-            x = layer(x, mask, rng)
-        return x, mask
+        return run_layers(self.layers, self.remat, x, mask, rng=rng), mask

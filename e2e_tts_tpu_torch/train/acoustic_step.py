@@ -66,12 +66,14 @@ def build_acoustic_model(config, n_symbols: int, n_speakers: int,
     trains it: attention through plain matmul/softmax (``use_flash=False``),
     weights from ``torch.Generator().manual_seed(seed)``, on ``device`` (CUDA
     when None, which raises without a card).  ``dropout=False`` zeroes every
-    dropout rate, the postnet's hard-coded 0.5 included."""
+    dropout rate (the active block family's, the predictors', the postnet's
+    hard-coded 0.5)."""
     fs2 = config.models.fastspeech2
     if not dropout:
-        blk = fs2.building_block.transformer.replace(encoder_dropout=0.0, decoder_dropout=0.0)
+        bb = fs2.building_block
+        blk = bb.active().replace(encoder_dropout=0.0, decoder_dropout=0.0)
         fs2 = fs2.replace(
-            building_block=fs2.building_block.replace(transformer=blk),
+            building_block=bb.replace(**{bb.block_type: blk}),
             variance=fs2.variance.replace(
                 variance_predictor=fs2.variance.variance_predictor.replace(dropout=0.0)))
     model = FastSpeech2(fs2, n_symbols, n_speakers, config.audio.mel.channels,
@@ -101,9 +103,6 @@ def _check_supported(config) -> None:
     if config.train.mixed_precision:
         raise NotImplementedError(
             "mixed_precision training is not ported yet (ROADMAP.md, Queue A, A14)")
-    if config.models.fastspeech2.remat_blocks:
-        raise NotImplementedError(
-            "remat_blocks is not ported yet (ROADMAP.md, Queue A, A15)")
 
 
 def forward_inputs(config, batch: AcousticBatch) -> dict:

@@ -6,7 +6,9 @@ against the CPU, the training CLI refusing to start without a card unless
 given ``--device cpu``, a vocoder GAN step against the CPU, and data
 preparation: a synthetic corpus's features on the card against the
 CPU (log-mel MAE < 1e-4, energy max < 2e-2, f0 and pitch equal) and one
-default-width train step on a bucketed batch of it.
+default-width train step on a bucketed batch of it; the four other block
+families' encoders and decoders against the CPU, and the reformer's
+rotation table on the card.
 
 Every test here is marked ``cuda`` and skips without a GPU, but one: the
 data entry points' ``device=None`` raising without a card runs on the CPU
@@ -748,3 +750,83 @@ def test_data_entry_points_raise_without_a_card(corpus):
         make_acoustic_batches(ds, 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_vocoder_batches(VocoderDataset(entries, default_config()), 2)
+
+
+FAMILY_SMALL = {  # tests/test_blocks.py::_cfg's widths
+    "conformer": dict(encoder_head=4, decoder_head=4, encoder_dropout=0.0, decoder_dropout=0.0),
+    "fastformer": dict(conv_filter_size=64, encoder_dropout=0.0, decoder_dropout=0.0),
+    "lstransformer": dict(conv_filter_size=64, window_size=16, r=1, encoder_dropout=0.0,
+                          decoder_dropout=0.0),
+    "reformer": dict(encoder_head=4, decoder_head=4, bucket_size=8, n_hashes=2,
+                     encoder_dropout=0.0, decoder_dropout=0.0),
+}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_SMALL))
+def test_block_family_on_cuda_matches_cpu(cuda, family):
+    """A family's encoder and decoder (2 + 2 layers, hidden 64, dropout 0) on
+    the card against the same weights on the CPU, cuDNN's TF32 off: the
+    forward in training mode (the conformer's BatchNorm on batch statistics)
+    within 1e-4 x max |output|, each gradient within 1e-3 relative norm, and
+    the BatchNorm statistics after it within 1e-5; no flash launch."""
+    import copy
+
+    from e2e_tts_tpu_torch.config import default_config
+    from e2e_tts_tpu_torch.models.blocks import build_decoder, build_encoder
+
+    torch.backends.cudnn.allow_tf32 = False
+    fs2 = default_config().models.fastspeech2
+    bb = fs2.building_block
+    fs2 = fs2.replace(encoder_layers=2, decoder_layers=2, encoder_hidden=64, decoder_hidden=64,
+                      building_block=bb.replace(block_type=family, **{family: getattr(
+                          bb, family).replace(**FAMILY_SMALL[family])}))
+    g = torch.Generator().manual_seed(0)
+    mods = {"cpu": (build_encoder(fs2, 40, generator=g, device="cpu"),
+                    build_decoder(fs2, generator=g, device="cpu"))}
+    mods["cuda"] = tuple(copy.deepcopy(m).to("cuda") for m in mods["cpu"])
+    rng = np.random.RandomState(3)
+    mask = np.arange(37)[None] < np.array([37, 28, 18])[:, None]
+    ids = rng.randint(1, 41, mask.shape) * mask
+    x = rng.randn(3, 37, 64).astype(np.float32)
+    # a fixed random projection of the outputs: the sum of squares of a
+    # LayerNorm's output barely depends on its input, and its gradient is noise
+    proj = rng.randn(2, 3, 37, 64).astype(np.float32)
+    out = {}
+    before = (flash_attention.launches, flash_attention.launches_16,
+              flash_attention.launches_16_sm90)
+    for device, (enc, dec) in mods.items():
+        m = torch.from_numpy(mask).to(device)
+        pe, pd = (torch.from_numpy(p).to(device) for p in proj)
+        ye, _ = enc(torch.from_numpy(ids).to(device), m, None, True)
+        yd, _ = dec(torch.from_numpy(x).to(device), m, None, True)
+        ((ye * pe).sum() + (yd * pd).sum()).backward()
+        out[device] = (ye.detach().cpu(), yd.detach().cpu())
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.launches_16,
+            flash_attention.launches_16_sm90) == before
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    for (c_mod, g_mod) in zip(mods["cpu"], mods["cuda"]):
+        grads = dict(g_mod.named_parameters())
+        for name, p in c_mod.named_parameters():
+            if name.endswith(("mhsa.key_proj.bias", "attn_logits.bias")):
+                continue  # 0 by construction: float noise on both
+            err = ((grads[name].grad.cpu() - p.grad).norm() / p.grad.norm().clamp(min=1e-30))
+            assert err.item() < 1e-3, name
+        bufs = dict(g_mod.named_buffers())
+        for name, b in c_mod.named_buffers():
+            assert (bufs[name].cpu() - b).abs().max() <= 1e-5, name
+
+
+def test_reformer_rotation_table_on_cuda(cuda):
+    """The key-0 rotation table in bfloat16 and float32, built on the host
+    and kept on the card, equals the host's draw bit for bit; a second call
+    returns the kept table."""
+    from e2e_tts_tpu_torch.ops import jax_random
+
+    for dtype in (torch.bfloat16, torch.float32):
+        shape = (48, 4, 8)
+        table = jax_random.lsh_rotations(shape, dtype, "cuda")
+        assert table.is_cuda and table.dtype == dtype
+        assert torch.equal(table.cpu(), jax_random.normal(jax_random.key_data(0), shape, dtype))
+        assert jax_random.lsh_rotations(shape, dtype, "cuda") is table

@@ -370,14 +370,30 @@ def test_same_seed_gives_identical_steps():
 
 
 def test_unported_training_options_raise():
+    """``mixed_precision`` is not ported (A14) and raises; ``remat_blocks``
+    is ported: a model built with it takes a train step with dropout on
+    whose metrics and updated weights equal the model's without it."""
     _, variables, _ = _models()
     port, cfg = _port(variables)
     opt = acoustic_optimizer(cfg.train.fastspeech2_optimizer, 32)
-    for bad, item in ((cfg.replace(train=cfg.train.replace(mixed_precision=True)), "A14"),
-                      (cfg.replace(models=cfg.models.replace(
-                          fastspeech2=cfg.models.fastspeech2.replace(remat_blocks=True))), "A15")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_train_step(port, bad, opt, N_WORDS)
+    with pytest.raises(NotImplementedError, match="A14"):
+        make_train_step(port, cfg.replace(train=cfg.train.replace(mixed_precision=True)), opt,
+                        N_WORDS)
+    cfg = _small(default_config(), rate=0.3)
+    remat = cfg.replace(models=cfg.models.replace(
+        fastspeech2=cfg.models.fastspeech2.replace(remat_blocks=True)))
+    runs = []
+    for c in (cfg, remat):
+        model = build_acoustic_model(c, N_SYMBOLS, N_SPEAKERS, device="cpu")
+        load_into(model, variables)
+        assert model.encoder.remat == c.models.fastspeech2.remat_blocks
+        runs.append((_port_steps(model, c, _batch(), 0, 1, seed=3)[0], model))
+    (m_plain, plain), (m_remat, recomputed) = runs
+    for k in m_plain:
+        assert abs(m_remat[k].item() - m_plain[k].item()) <= 1e-6 * max(abs(m_plain[k].item()),
+                                                                           1.0), k
+    for (n, p), q in zip(plain.named_parameters(), recomputed.parameters()):
+        assert (p - q).abs().max().item() <= 1e-6, n
 
 
 def test_training_model_builder(monkeypatch):

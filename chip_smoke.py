@@ -141,14 +141,31 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (phase 16's bar, on the mel), the log-durations at 2 x the model's own
    error, flash 0; (d) ``prepare`` and ``acoustic`` for 2 steps through the
    training CLI on phase 18's corpus with a conformer config;
-21. a JSON line of every kernel (the flash kernel's float32 form and its two
+21. the router, voice conversion, reference import and scoring:
+   ``synthesizer.Synthesizer(device="cuda")`` over the three checked-in
+   bundles serves one sentence a language (the Vietnamese one at a mel
+   bucket >= 256: flash launches must rise), each wav within LSB_TOL mean of
+   the same router on the CPU, request seconds and RTF per language
+   (``measure_rtf``); ``KnnVoiceConverter`` in ppg mode at prosody weights 0
+   and 1 on ``vie_tiny`` and at default width against the CPU on the same
+   mels (the share of frames matched to the CPU's target frames, ties within
+   VC_TIE apart, >= VC_AGREE; the mel on the frames that agree within
+   MEL_TOL, the CPU's converted mel vocoded on both within VC_WAV_MAE;
+   ``convert_mel`` and ``convert`` ms, ``convert``
+   rendering with the engine's vocoder); random reference-layout
+   ``state_dict``s of the default-width transformer and HiFi-GAN V1 saved
+   with ``torch.save`` and imported through ``compat`` onto the card and the
+   CPU, one request against the CPU (durations equal, mel within MEL_TOL,
+   int16 within LSB_TOL mean); ``LearnedMosScorer`` on every anchor within
+   MOS_TOL of the CPU (ms a window); one ``device_trace`` of a router request;
+22. a JSON line of every kernel (the flash kernel's float32 form and its two
    16-bit kernels apart), then the JSON result as the last line.
 
 Each path that launches kernels (phases 5, 8, 9, 10, 11, 12, 14, 15, 16, 18,
-19 and 20) is driven with the launch counts set to 0 just before it and read
+19, 20 and 21) is driven with the launch counts set to 0 just before it and read
 just after, and each kernel is held against its plain version on the first
 inputs that path gave it (``recorded_inputs``, ``recorded_train_inputs``).  The kernels' JSON line
-counts the serving run's launches of flash attention (phase 5's of the
+counts the serving run's launches of flash attention (phases 5 and 21's of the
 float32 form, phase 16's batch-8 run's of each 16-bit kernel) and phases 12,
 14, 18, 19 and 20's of the training kernels (19 and 20: their train steps').  From phase 6 on, the random
 vocoders run with their last convolution scaled so that the waveform is at a
@@ -3191,6 +3208,242 @@ def block_families(smi: str, work: str):
     return launches, {k: max(errs[k], cli_errs[k]) for k in errs}
 
 
+# --- 21. the router, voice conversion, reference import and scoring -----------------------
+
+ROUTER_TEXTS = {"vie": REQUESTS[-1],  # a mel bucket >= 256 on vie_tiny: the flash kernel
+                "eng": "Hello world, this is the English voice of the router.",
+                "mya": "မင်္ဂလာပါ၊ ဒီနေ့ ရာသီဥတု သာယာပါတယ်။"}
+VC_AGREE = 0.999   # the share of source frames matched as on the CPU, ties apart (VC_TIE)
+VC_TIE = 1e-4      # a frame's matches may differ from the CPU's only where their cosine
+                   # similarities, on the CPU's features, are this close to its own
+VC_WAV_MAE = 1e-5  # one converted mel vocoded on the card and on the CPU
+MOS_TOL = 1e-4     # a learned MOS score, CUDA vs CPU
+
+
+def vc_parity(what: str, gpu_eng, cpu_eng, src_mel, tgt_mel, src_audio, tgt_audio,
+              smi: str) -> dict:
+    """``KnnVoiceConverter`` in ppg mode on ``gpu_eng`` against the same on
+    ``cpu_eng``, on the same mels, at ``prosody_weight`` 0 and 1: the share of
+    source frames whose matched target frames equal the CPU's, or differ
+    only among frames tied with them (``knn_tie_margin`` <= VC_TIE), at least
+    VC_AGREE (the exact share is logged beside it: a trained aligner's sharp
+    posteriors, and a random one's flat ones, make many target frames
+    equally near); the mel on the frames that agree within MEL_TOL; the
+    CPU's converted mel vocoded on both devices within VC_WAV_MAE;
+    ``convert_mel``'s ms on the card."""
+    from e2e_tts_tpu_torch.serve.voice_conversion import KnnVoiceConverter
+
+    out = {}
+    for w in (0.0, 1.0):
+        conv = [KnnVoiceConverter(engine=e, feature_mode="ppg", prosody_weight=w)
+                for e in (gpu_eng, cpu_eng)]
+        tracks = ()
+        if w:
+            hop = gpu_eng.hop_length
+            tracks = (conv[0].prosody_track(src_audio, len(src_mel), gpu_eng.sample_rate, hop),
+                      conv[0].prosody_track(tgt_audio, len(tgt_mel), gpu_eng.sample_rate, hop))
+        (mel_g, idx_g), (mel_c, idx_c) = (c.convert_mel(src_mel, tgt_mel, *tracks,
+                                                        return_indices=True) for c in conv)
+        same = (idx_g == idx_c).all(axis=1)
+        margin = knn_tie_margin(conv[1], src_mel, tgt_mel, tracks, idx_g, idx_c)
+        tied = ~same & (margin <= VC_TIE)
+        mel_err = float(np.abs(mel_g[same] - mel_c[same]).max())
+        row = dict(frames=len(same), agree=float(f"{same.mean():.6g}"),
+                   agree_or_tied=float(f"{(same | tied).mean():.6g}"),
+                   worst_untied_margin=float(f"{margin[~same & ~tied].max():.3g}")
+                   if (~same & ~tied).any() else 0.0,
+                   worst_tied_margin=float(f"{margin[tied].max():.3g}") if tied.any() else 0.0,
+                   mel_err_on_agreeing=float(f"{mel_err:.3g}"))
+        if not ((same | tied).mean() >= VC_AGREE and mel_err < MEL_TOL):
+            raise AssertionError(f"{what} vc (prosody {w}): {row}")
+        # the rendering: the CPU's converted mel vocoded on both devices
+        wav_g, wav_c = gpu_eng.vocode_mel(mel_c), cpu_eng.vocode_mel(mel_c)
+        row["wav_mae"] = float(f"{np.abs(wav_g - wav_c).mean():.3g}")
+        if not row["wav_mae"] < VC_WAV_MAE:
+            raise AssertionError(f"{what} vc (prosody {w}): {row}")
+        row["convert_mel_ms"] = round(1e3 * timed_host(
+            lambda: conv[0].convert_mel(src_mel, tgt_mel, *tracks)), 3)
+        out[f"prosody_{w:g}"] = row
+    log(f"{what} voice conversion ({smi}) " + json.dumps(out))
+    return out
+
+
+def knn_tie_margin(conv, src_mel, tgt_mel, tracks, idx_g, idx_c):
+    """For each source frame, how much less similar (cosine, float64, on
+    ``conv``'s features: the CPU's) the card's k matched target frames are
+    than the CPU's own k: 0 where the two agree, a float error where the two
+    picked among tied frames."""
+    pn = conv._prosody_rms_norm(*tracks) if tracks else None
+    feats = [conv._features(m, t, pn).astype(np.float64)
+             for m, t in zip((src_mel, tgt_mel), tracks or (None, None))]
+    a, b = (f / np.maximum(np.linalg.norm(f, axis=1, keepdims=True), 1e-6) for f in feats)
+    sim = a @ b.T
+    rows = np.arange(len(sim))[:, None]
+    return np.maximum(sim[rows, idx_c].sum(1) - sim[rows, idx_g].sum(1), 0.0)
+
+
+def timed_host(fn, iters: int = 5) -> float:
+    """Seconds a call of ``fn`` takes on the host clock (after one warm-up
+    call), which covers the device work because ``fn`` returns host arrays."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters
+
+
+def router_vc_import_scoring(smi: str, eng, cpu, work: str):
+    """Phase 21.  (1) ``synthesizer.Synthesizer(device="cuda")`` over the
+    three discovered bundles serves one sentence a language (the
+    Vietnamese one at a mel bucket >= 256): flash launches must rise, the
+    kernel is held to its plain version on the inputs it got, each wav is
+    within LSB_TOL mean of the same router on the CPU; request seconds and
+    RTF per language from ``measure_rtf``.  (2) ``KnnVoiceConverter`` in ppg
+    mode at prosody weights 0 and 1 on the router's ``vie_tiny`` engine (two
+    router outputs converted to each other) and on the default-width
+    engines ``eng``/``cpu`` (two requests), against the CPU (``vc_parity``);
+    ``convert`` through the router's converter, which must render with the
+    engine's vocoder.  (3) random reference-layout ``state_dict``s of the
+    default-width transformer and HiFi-GAN V1, ``torch.save``d and loaded
+    through ``compat.load_torch_state_dict`` onto the card and the CPU: one
+    request, durations equal, the mel within MEL_TOL, the int16 within
+    LSB_TOL mean.  (4) ``LearnedMosScorer`` on the card against the CPU on
+    every anchor (MOS_TOL), ms a window; one ``device_trace`` of a router
+    request.  Returns (float32 flash launches, the kernel's largest error on
+    the phase's inputs)."""
+    import glob
+
+    from scipy.io import wavfile
+
+    from e2e_tts_tpu_torch.audio.wav import read_wav
+    from e2e_tts_tpu_torch.compat import load_acoustic, load_torch_state_dict, load_vocoder
+    from e2e_tts_tpu_torch.compat.reference_layout import random_reference_state_dict
+    from e2e_tts_tpu_torch.config import default_config
+    from e2e_tts_tpu_torch.kernels.flash_attention import flash_attention
+    from e2e_tts_tpu_torch.models.acoustic import FastSpeech2
+    from e2e_tts_tpu_torch.models.mos import MOS_WINDOW
+    from e2e_tts_tpu_torch.models.vocoder import build_generator
+    from e2e_tts_tpu_torch.nn.variance import FeatureStats
+    from e2e_tts_tpu_torch.serve.engine import SynthesisEngine
+    from e2e_tts_tpu_torch.serve.voice_conversion import KnnVoiceConverter
+    from e2e_tts_tpu_torch.synthesizer import Synthesizer
+    from e2e_tts_tpu_torch.text.frontends import get_frontend
+    from e2e_tts_tpu_torch.utils import device_trace, measure_rtf
+    from e2e_tts_tpu_torch.utils.metrics import LearnedMosScorer
+
+    # (1) the router on the card and on the CPU
+    routers = {dev: Synthesizer(device=dev, output_dir=os.path.join(work, f"router_{dev}"))
+               for dev in ("cuda", "cpu")}
+    if routers["cuda"].languages != ["eng", "mya", "vie"]:
+        raise AssertionError(f"router languages {routers['cuda'].languages}")
+    with recorded_inputs() as seen:
+        paths = {lang: routers["cuda"].synthesis(text, language=lang)[0]
+                 for lang, text in ROUTER_TEXTS.items()}
+    launches = flash_attention.launches
+    if launches <= 0:
+        raise AssertionError("the router never launched flash_attention")
+    err = check_serving_inputs(seen, "router")
+    for lang, text in ROUTER_TEXTS.items():
+        (sr_g, got), (sr_c, want) = (wavfile.read(p) for p in (
+            paths[lang], routers["cpu"].synthesis(text, language=lang)[0]))
+        if sr_g != sr_c:
+            raise AssertionError(f"router {lang}: {sr_g} Hz vs {sr_c} Hz")
+        lsb_diff(f"router {lang} ({len(text)} characters), CUDA vs CPU", got, want)
+    rtf = {}
+    for lang, text in ROUTER_TEXTS.items():
+        model = routers["cuda"].model_dict[lang]
+        rep = measure_rtf(lambda: model.synthesize_array(text), model.engine.sample_rate,
+                          warmup=1, runs=3)
+        rtf[lang] = dict(chars=len(text), request_s=[round(s, 4) for s in rep.per_run_s],
+                         audio_s=round(rep.audio_s / rep.runs, 3), rtf=round(rep.rtf, 5))
+    log(f"router ({smi}): flash launches {launches} " + json.dumps(rtf))
+
+    # (2) voice conversion: the router's vie_tiny engine, then the default width
+    tiny_g, tiny_c = (routers[d].model_dict["vie"].engine for d in ("cuda", "cpu"))
+    vc = routers["cuda"].voice_converter
+    src_path, tgt_path = paths["vie"], routers["cuda"].synthesis(REQUESTS[1])[0]
+    (src, _), (tgt, _) = read_wav(src_path), read_wav(tgt_path)
+    src_mel, tgt_mel = vc._mel(src, tiny_g.sample_rate), vc._mel(tgt, tiny_g.sample_rate)
+    vc_rows = {"vie_tiny": vc_parity("vie_tiny", tiny_g, tiny_c, src_mel, tgt_mel, src, tgt,
+                                     smi)}
+    vocoded = []
+    real_vocode = tiny_g.vocode_mel
+    tiny_g.vocode_mel = lambda mel: vocoded.append(len(mel)) or real_vocode(mel)
+    try:
+        out_path = os.path.join(work, "vc.wav")
+        convert_s = timed_host(lambda: vc.convert(tgt_path, src_path, out_path))
+    finally:
+        del tiny_g.vocode_mel
+    if not vocoded:
+        raise AssertionError("convert went to the spectral fallback, not the kNN path")
+    vc_rows["vie_tiny"]["convert_ms"] = round(1e3 * convert_s, 3)
+    audio = [eng.synthesize(t).astype(np.float32) / 32768.0 for t in REQUESTS[1:3]]
+    mels = [KnnVoiceConverter(engine=eng)._mel(a, eng.sample_rate) for a in audio]
+    vc_rows["default"] = vc_parity("default width", eng, cpu, mels[0], mels[1], *audio, smi)
+
+    # (3) reference-checkpoint import at default width
+    cfg = default_config()
+    n_symbols = len(get_frontend("vie").symbols)
+    template = FastSpeech2(cfg.models.fastspeech2, n_symbols, 1, cfg.audio.mel.channels,
+                           FeatureStats(), device="cpu")
+    for name, module in (("acoustic", template),
+                         ("generator", build_generator(cfg, "hifigan", device="cpu"))):
+        sd = random_reference_state_dict(module, seed=0)
+        torch.save({"state_dict": {k: torch.from_numpy(np.ascontiguousarray(v))
+                                   for k, v in sd.items()}}, os.path.join(work, f"{name}.pth"))
+    t0 = time.perf_counter()
+    imported = {}
+    for dev in ("cuda", "cpu"):
+        acoustic = load_acoustic(load_torch_state_dict(os.path.join(work, "acoustic.pth")), cfg,
+                                 n_symbols, 1, device=dev)
+        vocoder = load_vocoder(load_torch_state_dict(os.path.join(work, "generator.pth")), cfg,
+                               device=dev)
+        imported[dev] = SynthesisEngine(cfg, acoustic, vocoder, {"speaker": 0}, FeatureStats(),
+                                        device=dev)
+    import_s = time.perf_counter() - t0
+    text = REQUESTS[1]
+    before = flash_attention.launches
+    with duration_trace(imported["cuda"]) as d_g, captured_mels(imported["cuda"]) as m_g:
+        got = imported["cuda"].synthesize(text)
+    launches += flash_attention.launches - before
+    with duration_trace(imported["cpu"]) as d_c, captured_mels(imported["cpu"]) as m_c:
+        want = imported["cpu"].synthesize(text)
+    if len(d_g) != len(d_c) or not all(torch.equal(a, b) for a, b in zip(d_g, d_c)):
+        raise AssertionError("imported voice: durations differ from the CPU's")
+    mel_max = mel_gap(m_g, m_c)[0]
+    if not mel_max < MEL_TOL:
+        raise AssertionError(f"imported voice: mel {mel_max} from the CPU's (bar {MEL_TOL})")
+    lsb = lsb_diff(f"imported default-width voice ({len(text)} characters), CUDA vs CPU",
+                   got, want)
+    log(f"import ({smi}): two state dicts loaded onto both devices in {import_s:.2f} s; "
+        f"durations equal, mel max |diff| {mel_max:.3g}, {lsb:.4f} LSB")
+
+    # (4) scoring and a trace
+    scorers = {dev: LearnedMosScorer(device=dev) for dev in ("cuda", "cpu")}
+    worst, windows, t_card = 0.0, 0, 0.0
+    for path in sorted(glob.glob(os.path.join("assets", "mos", "anchors", "*.wav"))):
+        a, sr = read_wav(path)
+        scores = [scorers[d](a, sr) for d in ("cuda", "cpu")]
+        worst = max(worst, abs(scores[0] - scores[1]))
+        windows += max(1, len(a) // (MOS_WINDOW * 256))
+        t_card += timed_host(lambda: scorers["cuda"](a, sr))
+    if not windows or not worst < MOS_TOL:
+        raise AssertionError(f"MOS on the card {worst} from the CPU's (bar {MOS_TOL})")
+    before = flash_attention.launches
+    with device_trace(os.path.join(work, "trace")) as prof:
+        routers["cuda"].synthesis(ROUTER_TEXTS["vie"])
+    launches += flash_attention.launches - before
+    if not os.path.getsize(prof.trace_path):
+        raise AssertionError("device_trace wrote an empty trace")
+    log(f"scoring ({smi}): {windows} windows of {MOS_WINDOW} frames, worst |card - cpu| "
+        f"{worst:.3g}, {1e3 * t_card / windows:.3f} ms a window on the card; trace "
+        f"{os.path.getsize(prof.trace_path)} bytes")
+    log("router, voice conversion, import and scoring " + json.dumps(dict(
+        flash_launches=launches, router=rtf, vc=vc_rows, import_lsb=round(lsb, 4),
+        import_mel_max=float(f"{mel_max:.3g}"), mos_worst=float(f"{worst:.3g}"),
+        mos_ms_per_window=round(1e3 * t_card / windows, 3))))
+    return launches, err
+
 
 def main() -> int:
     smi = environment()
@@ -3238,13 +3491,18 @@ def main() -> int:
         t0 = time.perf_counter()
         family_launches, family_errs = block_families(smi, work)
         log(f"block families phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        router_launches, router_err = router_vc_import_scoring(smi, eng, cpu, work)
+        path_errs.append(router_err)
+        log(f"router, voice conversion, import and scoring phase: "
+            f"{time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
     source = "e2e_tts_tpu_torch/kernels/csrc/flash_attention.cu"
     for name, dtypes, prefix, src, n, errs in (
-            ("flash_attention", ("float32",), "kernel", source, launches["flash_attention"],
-             path_errs),
+            ("flash_attention", ("float32",), "kernel", source,
+             launches["flash_attention"] + router_launches, path_errs),
             # the 16-bit kernels: timed in bfloat16, the serving dtype, forced
             # in turns; the error in the dtype's values (within one ulp of the
             # plain version, phase 3); launches in phase 16's batch-8 run,

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..audio.mel import inverse_stft, reflect_pad, stft_window
+from ..ops.jax_random import key_data, normal
 
 
 def _stft_mag_phase(audio: torch.Tensor, n_fft: int, hop: int, win: int):
@@ -26,9 +27,9 @@ class Denoiser:
     """Spectral-subtraction denoiser for a vocoder's bias floor.
 
     ``vocode_fn``: mel (B, T, n_mels) -> audio (B, samples), on ``device``.
-    ``mode="normal"`` draws its mel from a ``torch.Generator`` seeded 0, so
-    its bias spectrum differs from the JAX package's, which draws from
-    ``jax.random.PRNGKey(0)``; ``mode="zeros"`` gives the same one."""
+    ``mode="normal"`` draws its mel as ``jax.random.normal(PRNGKey(0), ...)``
+    does (``ops/jax_random.normal``: within one float32 ulp of JAX's draw),
+    so both modes give the JAX package's bias spectrum."""
 
     def __init__(self, vocode_fn, n_mel_channels: int = 80, n_fft: int = 1024,
                  hop_length: int = 256, win_length: int = 1024, mode: str = "zeros",
@@ -40,7 +41,7 @@ class Denoiser:
         if mode == "zeros":
             mel = torch.zeros(shape)
         elif mode == "normal":
-            mel = torch.randn(shape, generator=torch.Generator().manual_seed(0))
+            mel = normal(key_data(0), shape, torch.float32)
         else:
             raise ValueError(f"unknown denoiser mode {mode!r}")
         with torch.no_grad():

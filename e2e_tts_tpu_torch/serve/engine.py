@@ -155,6 +155,11 @@ class SynthesisEngine:
         self._fpp = float(FRAMES_PER_PHONEME_EST)
         self._fpp_ema = float(FRAMES_PER_PHONEME_EST)
         self._fpp_nobs = 0
+        # the distinct stage-1 text buckets and stage-2 shapes run so far,
+        # which is what the JAX engine's compiled-program count stands for
+        # (``utils/profiling.engine_cache_stats``)
+        self.stage1_shapes: set = set()
+        self.stage2_shapes: set = set()
 
     _FPP_MIN, _FPP_MAX = 3.0, 16.0
     _FPP_HYSTERESIS = 0.75
@@ -185,6 +190,7 @@ class SynthesisEngine:
     @torch.no_grad()
     def _stage2(self, x, durations, T: int, p: float, e: float):
         """Stage 2 + vocoder at mel bucket T, on the device: int16 waveform."""
+        self.stage2_shapes.add((int(x.shape[1]), T))
         mel, mel_lens = self.acoustic.synthesize_stage2(
             x, durations, max_mel_len=T, p_control=p, e_control=e)
         audio = torch.clamp(self._vocode(mel).float(), -1.0, 1.0)
@@ -250,6 +256,7 @@ class SynthesisEngine:
         Lmax = int(lens.max())
         T_est = _mel_bucket(int(self._fpp * 1.2 * Lmax * max(d, 1.0)))
         put = lambda a: torch.from_numpy(a).to(self.device)
+        self.stage1_shapes.add(L)
         x, durations = self.acoustic.synthesize_stage1(
             put(speakers), put(texts), put(lens), p_control=p, e_control=e, d_control=d)
         codes, mel_lens = self._stage2(x, durations, T_est, p, e)
@@ -393,6 +400,7 @@ class SynthesisEngine:
             return np.zeros(0, np.float32)
         pad = np.zeros((_mel_bucket(T), mel.shape[1]), np.float32)
         pad[:T] = mel
+        self.stage2_shapes.add(("vocode", len(pad)))
         audio = self._vocode(torch.from_numpy(pad[None]).to(self.device))
         return audio[0, : T * self.hop_length].float().cpu().numpy()
 
@@ -408,6 +416,7 @@ class SynthesisEngine:
             return np.zeros((0, self.acoustic.n_symbols), np.float32)
         pad = np.zeros((_mel_bucket(T), mel.shape[1]), np.float32)
         pad[:T] = mel
+        self.stage2_shapes.add(("ppg", len(pad)))
         spk = torch.full((1,), speaker, dtype=torch.int64, device=self.device)
         ppg = self.acoustic.content_features(torch.from_numpy(pad[None]).to(self.device), spk)
         return ppg[0, :T].float().cpu().numpy()

@@ -24,6 +24,7 @@ import pytest
 import torch
 from flax import serialization
 
+from _torch_one_thread import one_thread  # noqa: F401
 from e2e_tts_tpu.config import default_config as jax_default_config
 from e2e_tts_tpu.config import load_config as jax_load_config
 from e2e_tts_tpu.models.acoustic import FastSpeech2 as JaxFastSpeech2
@@ -36,6 +37,8 @@ from e2e_tts_tpu_torch.models.acoustic import FastSpeech2
 from e2e_tts_tpu_torch.nn import transformer as port_transformer
 from e2e_tts_tpu_torch.nn.variance import FeatureStats
 from e2e_tts_tpu_torch.text.symbols import symbols
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIE_TINY = os.path.join(REPO, "assets", "bundles", "vie_tiny")

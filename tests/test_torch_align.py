@@ -26,6 +26,7 @@ import pytest
 import torch
 from flax import serialization
 
+from _torch_one_thread import one_thread  # noqa: F401
 from e2e_tts_tpu.audio.features import beta_binomial_prior as jax_prior
 from e2e_tts_tpu.config import load_config as jax_load_config
 from e2e_tts_tpu.models.acoustic import FastSpeech2 as JaxFastSpeech2
@@ -52,6 +53,8 @@ from e2e_tts_tpu_torch.ops import (
 from e2e_tts_tpu_torch.ops.ctc import ForwardSumCTC
 from e2e_tts_tpu_torch.text.symbols import symbols
 from e2e_tts_tpu_torch.train import noam_schedule
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIE_TINY = os.path.join(REPO, "assets", "bundles", "vie_tiny")

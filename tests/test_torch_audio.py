@@ -14,10 +14,13 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_one_thread import one_thread  # noqa: F401
 from e2e_tts_tpu.audio import filters as jax_filters
 from e2e_tts_tpu.audio import mel as jax_mel
 from e2e_tts_tpu.audio import wav as jax_wav
 from e2e_tts_tpu_torch.audio import filters, mel, wav
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 MEL_MAE = 1e-4
 ENERGY_MAX = 2e-2

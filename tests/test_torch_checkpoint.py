@@ -26,6 +26,7 @@ import pytest
 import torch
 from flax import serialization
 
+from _torch_one_thread import one_thread  # noqa: F401
 from e2e_tts_tpu.serve.bundle import save_bundle as jax_save_bundle
 from e2e_tts_tpu.train.checkpoint import scan_checkpoint as jax_scan_checkpoint
 from e2e_tts_tpu.train.cli import warm_start_params as jax_warm_start_params
@@ -46,6 +47,8 @@ from e2e_tts_tpu_torch.train import (AcousticBatch, CheckpointManager, E2EBatch,
 from e2e_tts_tpu_torch.train.checkpoint import _snapshot
 from test_torch_gan import SEG, TINY_GEN, _speech
 from test_torch_train import N_SPEAKERS, N_SYMBOLS, N_WORDS, _batch, _small
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIE_TINY = os.path.join(REPO, "assets", "bundles", "vie_tiny")

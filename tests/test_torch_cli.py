@@ -47,6 +47,7 @@ import pytest
 import torch
 from flax import serialization
 
+from _torch_one_thread import one_thread  # noqa: F401
 import e2e_tts_tpu.models.acoustic as jax_acoustic
 from e2e_tts_tpu.config import load_config as jax_load_config
 from e2e_tts_tpu.data import AcousticDataset as JaxAcousticDataset
@@ -68,6 +69,8 @@ from e2e_tts_tpu_torch.train import cli
 from e2e_tts_tpu_torch.train.optim import e2e_optimizers
 from e2e_tts_tpu_torch.utils import logging as port_logging
 from e2e_tts_tpu_torch.utils.prefetch import prefetch_iterator
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 MEL_TOL = 1e-3
 STATS_RTOL = 1e-4

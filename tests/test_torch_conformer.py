@@ -8,10 +8,13 @@ this file also holds the transformer's ``remat_blocks`` check."""
 
 import pytest
 
+from _torch_one_thread import one_thread  # noqa: F401
 from _torch_families import (check_bf16_matches_jax, check_blocks_match_jax,
                              check_bundle_round_trip,
                              check_remat_same_math, check_serving_matches_jax,
                              check_train_step_matches_jax)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("mask_attention", [True, False])

@@ -8,7 +8,9 @@ preparation: a synthetic corpus's features on the card against the
 CPU (log-mel MAE < 1e-4, energy max < 2e-2, f0 and pitch equal) and one
 default-width train step on a bucketed batch of it; the four other block
 families' encoders and decoders against the CPU, and the reformer's
-rotation table on the card.
+rotation table on the card; the router's ``vie_tiny`` request, the kNN
+voice-conversion match and the learned MOS scorer on the card against the
+CPU.
 
 Every test here is marked ``cuda`` and skips without a GPU, but one: the
 data entry points' ``device=None`` raising without a card runs on the CPU
@@ -830,3 +832,67 @@ def test_reformer_rotation_table_on_cuda(cuda):
         assert table.is_cuda and table.dtype == dtype
         assert torch.equal(table.cpu(), jax_random.normal(jax_random.key_data(0), shape, dtype))
         assert jax_random.lsh_rotations(shape, dtype, "cuda") is table
+
+
+# --- the router, voice conversion and scoring on the card ------------------------------
+
+
+def test_router_vie_tiny_on_cuda_matches_cpu(cuda, tmp_path):
+    """The router's Vietnamese voice on the card launches the flash kernel
+    (the request's mel bucket is >= 256) and is within 1 LSB on average of
+    the same router on the CPU."""
+    import os
+
+    from chip_smoke import REQUESTS
+    from e2e_tts_tpu_torch.synthesizer import Synthesizer, discover_bundles
+
+    bundles = {"vie": discover_bundles()["vie"]}
+    text = REQUESTS[-1]
+    outs = {}
+    for dev in (cuda, "cpu"):
+        r = Synthesizer(bundles=bundles, auto_discover=False, device=dev,
+                        output_dir=str(tmp_path / str(dev)))
+        assert r.model_dict["vie"].engine.device.type == torch.device(dev).type
+        before = flash_attention.launches
+        outs[str(dev)] = r.model_dict["vie"].synthesize_array(text)
+        if dev is cuda:
+            assert flash_attention.launches > before
+    a, b = outs["cuda"], outs["cpu"]
+    assert len(a) == len(b) > 0
+    assert np.abs(a.astype(np.int32) - b.astype(np.int32)).mean() < 1.0
+
+
+def test_knn_match_on_cuda_matches_cpu(cuda):
+    """``_knn_match`` on the card: at least 99.9% of the source frames pick
+    the CPU's target frames, and on those the mel is within 1e-3."""
+    from e2e_tts_tpu_torch.serve.voice_conversion import _knn_match
+
+    rng = np.random.RandomState(0)
+    sf, tf = (rng.randn(n, 200).astype(np.float32) for n in (512, 768))
+    tm = rng.randn(768, 80).astype(np.float32)
+    mask = np.arange(768) < 700
+    outs = [_knn_match(*(torch.from_numpy(a).to(dev) for a in (sf, tf, tm, mask)), k=4)
+            for dev in (cuda, "cpu")]
+    (mel_g, idx_g), (mel_c, idx_c) = ((m.cpu().numpy(), i.cpu().numpy()) for m, i in outs)
+    same = (idx_g == idx_c).all(axis=1)
+    assert same.mean() >= 0.999
+    assert np.abs(mel_g[same] - mel_c[same]).max() < 1e-3
+
+
+def test_mos_predictor_on_cuda_matches_cpu(cuda):
+    """``LearnedMosScorer`` on the card scores each anchor within 1e-4 of
+    the CPU."""
+    import glob
+    import os
+
+    from e2e_tts_tpu_torch.audio.wav import read_wav
+    from e2e_tts_tpu_torch.utils.metrics import LearnedMosScorer
+
+    anchors = sorted(glob.glob(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "assets", "mos", "anchors", "*.wav")))
+    assert anchors
+    gpu, cpu = LearnedMosScorer(device=cuda), LearnedMosScorer(device="cpu")
+    assert next(gpu.model.parameters()).is_cuda
+    for path in anchors:
+        audio, sr = read_wav(path)
+        assert abs(gpu(audio, sr) - cpu(audio, sr)) < 1e-4, path

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_one_thread import one_thread  # noqa: F401
 from e2e_tts_tpu.audio import features as jax_features
 from e2e_tts_tpu.config import default_config as jax_default_config
 from e2e_tts_tpu.data import audio_prep as jax_audio_prep
@@ -35,6 +36,8 @@ from e2e_tts_tpu_torch.config import default_config
 from e2e_tts_tpu_torch.data import audio_prep, dataset, filelist, mfa, synthetic
 from e2e_tts_tpu_torch.data import features as data_features
 from e2e_tts_tpu_torch.native import native_yin_f0
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 MEL_MAE = 1e-4
 ENERGY_MAX = 2e-2

@@ -42,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_one_thread import one_thread  # noqa: F401
 from e2e_tts_tpu.config import default_config as jax_default_config
 from e2e_tts_tpu.nn.hifigan import HifiGanGenerator as JaxHifiGan
 from e2e_tts_tpu.train import acoustic_optimizer as jax_acoustic_optimizer
@@ -61,6 +62,8 @@ from test_torch_gan import (SEG, TINY_GEN, _np, _rel, _snapshot, _speech, _tiny_
 from test_torch_train import (N_WORDS, STATS_TOL, ZERO_BY_CONSTRUCTION, _batch, _jax_apply, _models,
                               _small)
 from test_torch_train import _port as _port_acoustic
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4

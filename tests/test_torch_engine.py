@@ -34,11 +34,14 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_one_thread import one_thread  # noqa: F401
 from e2e_tts_tpu.nn.hifigan import IstftNetGenerator as JaxIstftNet
 from e2e_tts_tpu.serve.bundle import load_bundle as jax_load_bundle
 from e2e_tts_tpu.serve.engine import SynthesisEngine as JaxEngine
 from e2e_tts_tpu_torch.serve.bundle import load_bundle
 from e2e_tts_tpu_torch.serve.engine import SynthesisEngine
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUNDLES = os.path.join(REPO, "assets", "bundles")
@@ -347,6 +350,9 @@ def test_port_imports_no_jax():
             "[get_frontend(lang) for lang in ('vie', 'eng', 'mya')]\n"
             "x = np.sin(np.arange(8000) * 0.06).astype(np.float32)\n"
             "extract_f0(x, 32, 22050, 256), extract_pitch(x, 22050, 256)\n"
+            "from e2e_tts_tpu_torch.serve.voice_conversion import KnnVoiceConverter\n"
+            "from e2e_tts_tpu_torch.utils.metrics import DspProxyScorer\n"
+            "KnnVoiceConverter(device='cpu'), DspProxyScorer()(x, 22050)\n"
             "maps = open('/proc/self/maps').read().split()\n"
             "print('\\n'.join(sorted(sys.modules) + [m for m in maps if 'libyin' in m]))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -358,7 +364,11 @@ def test_port_imports_no_jax():
             "e2e_tts_tpu_torch.kernels.ctc", "e2e_tts_tpu_torch.train.e2e_step",
             "e2e_tts_tpu_torch.data.dataset", "e2e_tts_tpu_torch.train.checkpoint",
             "e2e_tts_tpu_torch.train.cli", "e2e_tts_tpu_torch.utils.prefetch",
-            "e2e_tts_tpu_torch.utils.logging", "e2e_tts_tpu_torch.native.build"} <= walked
+            "e2e_tts_tpu_torch.utils.logging", "e2e_tts_tpu_torch.native.build",
+            "e2e_tts_tpu_torch.serve.voice_conversion", "e2e_tts_tpu_torch.synthesizer",
+            "e2e_tts_tpu_torch.compat.torch_import", "e2e_tts_tpu_torch.models.mos",
+            "e2e_tts_tpu_torch.utils.metrics", "e2e_tts_tpu_torch.utils.profiling",
+            "e2e_tts_tpu_torch.utils.params"} <= walked
     assert walked <= set(out)  # every walked module is loaded
     libs = {m for m in out if "libyin" in m}
     assert libs and all(m.startswith(os.path.join(REPO, "e2e_tts_tpu_torch", "native", "_build"))

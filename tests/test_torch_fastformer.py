@@ -8,8 +8,11 @@ pre-zero), the full FastSpeech2's serving stages and ``to_jax`` round trip
 
 import pytest
 
+from _torch_one_thread import one_thread  # noqa: F401
 from _torch_families import (check_blocks_match_jax, check_remat_same_math,
                              check_serving_matches_jax, check_train_step_matches_jax, models)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("reference_compat", [False, True])

@@ -20,7 +20,10 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_one_thread import one_thread  # noqa: F401
 from e2e_tts_tpu_torch.kernels.flash_attention import attention_plain, flash_attention, ulp_error
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 BN = 64  # keys a K/V tile of flash_fwd_16_sm90 (and flash_fwd_16)
 P_SCALE = {torch.bfloat16: 1.0, torch.float16: 32768.0}

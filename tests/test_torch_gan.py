@@ -28,6 +28,7 @@ import optax
 import pytest
 import torch
 
+from _torch_one_thread import one_thread  # noqa: F401
 from e2e_tts_tpu.audio.mel import inverse_stft as jax_inverse_stft
 from e2e_tts_tpu.config import default_config as jax_default_config
 from e2e_tts_tpu.nn import common as jax_common
@@ -45,6 +46,8 @@ from e2e_tts_tpu_torch.nn import common, discriminators
 from e2e_tts_tpu_torch.nn.hifigan import TrainableHifiGan, TrainableIstftNet
 from e2e_tts_tpu_torch.train import (VocoderBatch, gan_optimizer, init_vocoder_train_state,
                                      make_vocoder_train_step)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4

@@ -19,9 +19,12 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_one_thread import one_thread  # noqa: F401
 from e2e_tts_tpu.kernels import attention_reference
 from e2e_tts_tpu.kernels import flash_attention as jax_flash_attention
 from e2e_tts_tpu_torch.kernels.flash_attention import attention_plain, flash_attention
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TOL = 2e-5
 

@@ -9,8 +9,11 @@ and ``remat_blocks``.  The checks and their bars are in
 
 import pytest
 
+from _torch_one_thread import one_thread  # noqa: F401
 from _torch_families import (check_blocks_match_jax, check_remat_same_math,
                              check_serving_matches_jax, check_train_step_matches_jax)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("reference_compat,T", [(False, 37), (True, 37), (False, 11)])

@@ -7,10 +7,13 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_one_thread import one_thread  # noqa: F401
 from e2e_tts_tpu import ops as jops
 from e2e_tts_tpu.nn import common as jcommon
 from e2e_tts_tpu_torch import ops as tops
 from e2e_tts_tpu_torch.nn import common as tcommon
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TOL = 1e-6
 

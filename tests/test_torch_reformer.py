@@ -7,7 +7,8 @@ package's, on the CPU.
   and the float32 and bfloat16 uniforms bit-equal; the normals bit-equal
   in bfloat16 and within one float32 ulp in float32 (XLA's erfinv and
   log1p round their last bit otherwise than torch's ops); the bucket ids
-  that the key-0 rotations give equal to JAX's.
+  that the key-0 rotations give equal to JAX's; the float32 rotation
+  tables at every shape the default reformer reaches bit-equal.
 - ``lsh_attention`` on given rotations, at T = 64 (bucket 8) and T = 1024
   (bucket 64), with the soft cross-bucket penalty and with
   ``attend_across_buckets`` True and False, padding in the batch: max
@@ -23,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_one_thread import one_thread  # noqa: F401
 from _torch_families import (check_bf16_matches_jax, check_blocks_match_jax,
                              check_bundle_round_trip,
                              check_remat_same_math, check_serving_matches_jax,
@@ -30,6 +32,8 @@ from _torch_families import (check_bf16_matches_jax, check_blocks_match_jax,
 from e2e_tts_tpu.nn.reformer import lsh_attention as jax_lsh_attention
 from e2e_tts_tpu_torch.nn.reformer import lsh_attention
 from e2e_tts_tpu_torch.ops import jax_random
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 LSH_TOL = 1e-5
 SHAPES = [(48, 4, 8), (16, 2, 3), (64, 4, 1), (7, 5), (1000,)]
@@ -59,6 +63,19 @@ def test_sampler_normal_matches_jax(shape):
     want = np.asarray(jax.random.normal(KEY, shape, jnp.float32))
     got = jax_random.normal(key, shape, torch.float32).numpy()
     assert (np.abs(got - want) <= np.spacing(np.abs(want))).all()  # one float32 ulp
+
+
+# The rotation tables the default reformer reaches: D = 384 / 8 = 48 (the
+# head width), 4 hashes, r = n_buckets / 2 for every T the encoder's text
+# buckets (up to 320, padded to 384) and the decoder's mel buckets (up to
+# MAX_MEL_LEN = 2048) give at bucket_size 64, padded to a multiple of 128;
+# the training buckets (mel up to 1024, text up to 256) fall in the same range.
+@pytest.mark.parametrize("r", range(1, 17))
+def test_default_reformer_rotations_bit_equal(r):
+    shape = (48, 4, r)
+    want = np.asarray(jax.random.normal(KEY, shape, jnp.float32))
+    got = jax_random.lsh_rotations(shape, torch.float32, "cpu").numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_sampler_refuses_other_dtypes():

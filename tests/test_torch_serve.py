@@ -27,6 +27,7 @@ import pytest
 import torch
 from scipy.io import wavfile
 
+from _torch_one_thread import one_thread  # noqa: F401
 from e2e_tts_tpu.models import build_generator as jax_build_generator
 from e2e_tts_tpu.config import default_config as jax_default_config
 from e2e_tts_tpu.serve.audio_post import change_speed_array as jax_change_speed_array
@@ -39,6 +40,8 @@ from e2e_tts_tpu_torch.convert import load_into
 from e2e_tts_tpu_torch.models import build_generator
 from e2e_tts_tpu_torch.serve import (BatchingServer, StreamingVocoder, SynthesisEngine,
                                      Synthesizer, change_speed_array, stream_synthesize)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIE_TINY = os.path.join(REPO, "assets", "bundles", "vie_tiny")

@@ -9,10 +9,14 @@ length and mean |diff| < 1 LSB.
 import os
 
 import numpy as np
+import pytest
 
+from _torch_one_thread import one_thread  # noqa: F401
 from e2e_tts_tpu.serve.engine import SynthesisEngine as JaxEngine
 from e2e_tts_tpu.serve.streaming import stream_synthesize as jax_stream_synthesize
 from e2e_tts_tpu_torch.serve import SynthesisEngine, stream_synthesize
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIE_TINY = os.path.join(REPO, "assets", "bundles", "vie_tiny")

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_one_thread import one_thread  # noqa: F401
 import e2e_tts_tpu.models.acoustic as jax_acoustic
 from e2e_tts_tpu.config import default_config as jax_default_config
 from e2e_tts_tpu.models.acoustic import FastSpeech2 as JaxFastSpeech2
@@ -57,6 +58,8 @@ from e2e_tts_tpu_torch.nn.common import Conv1d
 from e2e_tts_tpu_torch.train import (AcousticBatch, acoustic_optimizer, build_acoustic_model,
                                      init_train_state, make_train_step)
 from e2e_tts_tpu_torch.train.acoustic_step import forward_inputs
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 N_SYMBOLS, N_SPEAKERS, N_MELS, N_WORDS = 40, 3, 80, 16
 CONV_TOL = 1e-6

@@ -7,11 +7,14 @@ import os
 
 import pytest
 
+from _torch_one_thread import one_thread  # noqa: F401
 from e2e_tts_tpu.text import normalize_text as jax_normalize_text
 from e2e_tts_tpu.text import text_to_sequence as jax_text_to_sequence
 from e2e_tts_tpu.text.frontends import get_frontend as jax_frontend
 from e2e_tts_tpu_torch.text import normalize_text, text_to_sequence
 from e2e_tts_tpu_torch.text.frontends import get_frontend
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 WORDS = os.path.join(os.path.dirname(__file__), "assets", "lts_benchmark_words.txt")
 

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_one_thread import one_thread  # noqa: F401
 import e2e_tts_tpu.models.acoustic as jax_acoustic
 from e2e_tts_tpu.audio.features import beta_binomial_prior
 from e2e_tts_tpu.config import default_config as jax_default_config
@@ -64,6 +65,8 @@ from e2e_tts_tpu_torch.train import (
     make_eval_step,
     make_train_step,
 )
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 N_SYMBOLS, N_SPEAKERS, N_MELS, N_WORDS = 40, 3, 80, 16
 LOSS_TOL = 1e-5

@@ -2,8 +2,9 @@
 ``.apply``, same weights (carried across by ``convert.py``, weight norm
 fused), same numpy mel, on the CPU.  Bar: waveform MAE < 1e-5 (the HiFi-GAN
 parity bar of BASELINE.md); the max error is held to 1e-4, and so are the
-iSTFTNet head's spectrum and phase.  The bias denoiser (``mode="zeros"``)
-against the JAX one: max |diff| < 1e-4."""
+iSTFTNet head's spectrum and phase.  The bias denoiser (``mode="zeros"`` and
+``mode="normal"``, JAX's key-0 noise on both sides) against the JAX one: max
+|diff| < 1e-4."""
 
 import functools
 import os
@@ -15,6 +16,7 @@ import pytest
 import torch
 from flax import serialization
 
+from _torch_one_thread import one_thread  # noqa: F401
 from e2e_tts_tpu.config import load_config as jax_load_config
 from e2e_tts_tpu.models.vocoder import build_generator as jax_build_generator
 from e2e_tts_tpu.models.vocoder import fuse_weight_norm as jax_fuse_weight_norm
@@ -29,6 +31,8 @@ from e2e_tts_tpu_torch.models.vocoder import (build_generator, fuse_weight_norm,
                                               vocode)
 from e2e_tts_tpu_torch.nn.hifigan import (HifiGanGenerator, IstftNetGenerator, TrainableIstftNet,
                                            fuse_generator)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIE_TINY = os.path.join(REPO, "assets", "bundles", "vie_tiny")
@@ -223,9 +227,15 @@ def test_denoiser_matches_jax():
         assert np.abs(got - want).max() < MAX_TOL
     with pytest.raises(ValueError):
         Denoiser(port, mode="loud")
-    # mode="normal" draws from a torch generator seeded 0: repeatable
-    a, b = (Denoiser(port, mode="normal", bias_frames=32).bias_spec for _ in range(2))
-    assert torch.equal(a, b)
+    # mode="normal": JAX's key-0 normals on both sides
+    jn = JaxDenoiser(jax_vocode, n_mel_channels=80, bias_frames=32, mode="normal")
+    pn = Denoiser(port, n_mel_channels=80, bias_frames=32, mode="normal")
+    assert np.abs(pn.bias_spec.numpy() - np.asarray(jn.bias_spec)).max() < MAX_TOL
+    for strength in (0.1, 1.0):
+        want = np.asarray(jn(jnp.asarray(audio), strength))
+        got = pn(torch.from_numpy(audio), strength).numpy()
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() < MAX_TOL
 
 
 def test_denoiser_reduces_bias():

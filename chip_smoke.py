@@ -158,16 +158,38 @@ Phases, in order; any failure raises and the exit code is non-zero:
    CPU, one request against the CPU (durations equal, mel within MEL_TOL,
    int16 within LSB_TOL mean); ``LearnedMosScorer`` on every anchor within
    MOS_TOL of the CPU (ms a window); one ``device_trace`` of a router request;
-22. a JSON line of every kernel (the flash kernel's float32 form and its two
+22. mixed precision and the engine's serving options: (a) the default-width
+   FastSpeech2 built in bfloat16 (float32 parameters): phase 12's parity
+   shape on the card, on the CPU in bfloat16 and on the CPU in float64
+   (the oracle), every loss term and gradient within max(2 x the CPU
+   bfloat16 run's distance, 2**-8) of float64 (``bf16_oracle``; the CPU
+   runs on the card's alignment and relu decisions), then phase 12's B = 32
+   step timed in turns beside float32 (ms, peak memory, busy share), MAS
+   and the CTC forward and backward launched once a step on float32 inputs
+   and held to their plain versions; (b) the bfloat16 HiFi-GAN V1 training
+   form with MPD/MSD in float32: phase 13's parity rows by the same oracle
+   (gradients from Adam's first moments), then phase 13's step in turns
+   beside float32; (c) the training CLI with ``train.mixed_precision: true``
+   on phase 18's corpus: ``acoustic`` (a bfloat16 model, float32 in its
+   checkpoint; the loop's ms a step), ``e2e`` one step with that config and
+   with float32 (float32 models both times, the first metrics equal); (d)
+   the 343-character request in float32 and bfloat16: ``use_folded_vocoder``
+   against the generator (vocoder ms and device ms; int16 within LSB_TOL
+   mean), ``transfer_codec="mulaw8"`` against int16 (the device-to-host
+   copy ms and bytes, request seconds), ``use_flash=False`` against the
+   default (request seconds; flash launches 0 and > 0), the flash kernels
+   held to their plain version on the requests' inputs;
+23. a JSON line of every kernel (the flash kernel's float32 form and its two
    16-bit kernels apart), then the JSON result as the last line.
 
 Each path that launches kernels (phases 5, 8, 9, 10, 11, 12, 14, 15, 16, 18,
-19, 20 and 21) is driven with the launch counts set to 0 just before it and read
+19, 20, 21 and 22) is driven with the launch counts set to 0 just before it and read
 just after, and each kernel is held against its plain version on the first
 inputs that path gave it (``recorded_inputs``, ``recorded_train_inputs``).  The kernels' JSON line
-counts the serving run's launches of flash attention (phases 5 and 21's of the
-float32 form, phase 16's batch-8 run's of each 16-bit kernel) and phases 12,
-14, 18, 19 and 20's of the training kernels (19 and 20: their train steps').  From phase 6 on, the random
+counts the serving run's launches of flash attention (phases 5, 21 and 22's of
+the float32 form, phase 16's batch-8 run's and phase 22's bfloat16 requests' of
+each 16-bit kernel) and phases 12, 14, 18, 19, 20 and 22's of the training
+kernels (19, 20 and 22: their train steps').  From phase 6 on, the random
 vocoders run with their last convolution scaled so that the waveform is at a
 speaking level (``make_audible``): the random weights alone give well under
 1 LSB.
@@ -3445,6 +3467,433 @@ def router_vc_import_scoring(smi: str, eng, cpu, work: str):
     return launches, err
 
 
+# --- 22. mixed-precision training and the engine's serving options ------------------------
+
+BF16_FLOOR = 2.0 ** -8  # the bfloat16 oracle bar's floor
+MP_TURN_STEPS = 3  # timed steps a turn (float32, bfloat16, bfloat16, float32)
+MP_CLI_STEPS = 8
+CODEC_ITERS = 20
+
+
+def bf16_oracle(what: str, card: dict, cpu: dict, exact: dict, zero=None) -> dict:
+    """For each name: relL2(card - f64) <= max(2 x relL2(cpu - f64), BF16_FLOOR),
+    relL2 over the float64 oracle's norm, the CPU bfloat16 run standing where
+    the CPU tests put JAX's; names matching ``zero`` (0 by construction) are
+    noise on both 16-bit sides, each held below BF16_FLOOR of the oracle's
+    global norm.  Logs each side's distances and raises past the bar."""
+    scale = float(np.sqrt(sum(float((torch.as_tensor(v, dtype=torch.float64) ** 2).sum())
+                              for v in exact.values())))
+    rows, zeros = [], 0
+    for name, want in exact.items():
+        want = torch.as_tensor(want, dtype=torch.float64)
+        c = torch.as_tensor(card[name], dtype=torch.float64).cpu()
+        h = torch.as_tensor(cpu[name], dtype=torch.float64)
+        if zero is not None and zero.search(name):
+            if not (c.norm() < BF16_FLOOR * scale and h.norm() < BF16_FLOOR * scale):
+                raise AssertionError(f"{what}: {name} should be 0 by construction")
+            zeros += 1
+            continue
+        norm = float(want.norm()) or 1e-300
+        dc, dh = float((c - want).norm()) / norm, float((h - want).norm()) / norm
+        rows.append((dc / max(2.0 * dh, BF16_FLOOR), dc, dh, name))
+    rows.sort(reverse=True)
+    log(f"{what} bf16 oracle " + json.dumps(dict(
+        tensors=len(rows), zero_by_construction=zeros,
+        worst=[dict(name=r[3], card_vs_f64=float(f"{r[1]:.3g}"), cpu_vs_f64=float(f"{r[2]:.3g}"),
+                    of_bar=round(r[0], 3)) for r in rows[:6]])))
+    over = [r for r in rows if r[0] > 1.0]
+    if over:
+        raise AssertionError(f"{what}: {len(over)} past max(2 x the CPU bf16's, 2**-8): "
+                             + ", ".join(f"{r[3]} {r[1]:.3g} (CPU {r[2]:.3g})" for r in over))
+    return dict(tensors=len(rows), worst_of_bar=round(rows[0][0], 4) if rows else 0.0)
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 ulp at |x|."""
+    e = torch.floor(torch.log2(x.abs().clamp(min=torch.finfo(torch.float32).tiny)))
+    return torch.exp2(e - 7)
+
+
+def bf16_acoustic_parity(cfg, batch_np, n_symbols: int, n_words: int) -> dict:
+    """A bfloat16 step's forward and backward at phase 12's parity shape (4
+    rows, dropout 0, step 30000) on the card, on the CPU in bfloat16 and, the
+    oracle, on the CPU in float64 (``.double()`` of the float32 twin): every
+    loss term and gradient by ``bf16_oracle``.  The CPU runs take the card's
+    MAS alignment (its durations equal the CPU bfloat16 run's own, or differ
+    only where the two MAS inputs lie within one bfloat16 ulp) and the CPU
+    bfloat16 run takes the card's relu decisions, so that the three
+    differentiate one function."""
+    import e2e_tts_tpu_torch.nn.variance as variance
+    from e2e_tts_tpu_torch.train import AcousticBatch, build_acoustic_model
+
+    step = 30000
+    cpu = build_acoustic_model(cfg, n_symbols, TRAIN_SPEAKERS, dropout=False, device="cpu",
+                               dtype=torch.bfloat16)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    f64 = build_acoustic_model(cfg, n_symbols, TRAIN_SPEAKERS, dropout=False, device="cpu")
+    f64.load_state_dict(cpu.state_dict())
+    f64 = f64.double()
+    rows = [a[:PARITY_ROWS] for a in batch_np]
+    relu_g = []
+
+    def run(model, device, dtype, hard=None, relu=None):
+        b = AcousticBatch.from_numpy(rows, device)
+        if dtype == torch.float64:
+            b = to_dtype(b, dtype)
+        model.train()
+        real = variance.monotonic_align
+        own = []
+
+        def align(attn, tl, ml):
+            own.append(real(attn, tl, ml))
+            return own[-1] if hard is None else hard.to(attn.device, attn.dtype)
+        variance.monotonic_align = align
+        try:
+            with relu_calls(record=relu if device == "cuda" else None,
+                            replay=relu if device != "cuda" and dtype != torch.float64 else None):
+                out, losses = forward_losses(model, cfg, b, step, n_words,
+                                             torch.Generator(device))
+        finally:
+            variance.monotonic_align = real
+        losses["total"].backward()
+        grads = {n: p.grad.detach() for n, p in model.named_parameters()}
+        return out, own[0], {k: v.item() for k, v in losses.items()}, grads
+
+    t0 = time.perf_counter()
+    out_g, hard_g, loss_g, grad_g = run(gpu, "cuda", torch.bfloat16, relu=relu_g)
+    out_c, own_c, loss_c, grad_c = run(cpu, "cpu", torch.bfloat16, hard_g.cpu(), relu_g)
+    differ = (own_c != hard_g.cpu())
+    if differ.any():
+        lg = out_g["attn_logprob"].detach().float().cpu()[differ]
+        lc = out_c["attn_logprob"].detach().float()[differ]
+        if not bool(((lg - lc).abs() <= bf16_ulp(lc)).all()):
+            raise AssertionError("bf16 parity: the card's alignment differs from the CPU's off a "
+                                 "bfloat16 tie")
+    _, _, loss_x, grad_x = run(f64, "cpu", torch.float64, hard_g.cpu())
+    losses = bf16_oracle("bf16 acoustic losses", loss_g, loss_c, loss_x)
+    grads = bf16_oracle("bf16 acoustic gradients", grad_g, grad_c, grad_x, ZERO_BY_CONSTRUCTION)
+    return dict(rows=PARITY_ROWS, step=step, cpu_s=round(time.perf_counter() - t0, 2),
+                alignment_cells_differing=int(differ.sum()), losses=losses, gradients=grads)
+
+
+def train_turns(make_step, what: str, pattern=None) -> dict:
+    """Each dtype's step ``make_step[dtype]()`` -> step fn, timed in turns
+    (float32, bfloat16, bfloat16, float32; MP_TURN_STEPS steps a turn after
+    one warm-up each): ms a step, peak memory, and a profiled step's busy
+    share."""
+    steps = {dt: make_step[dt]() for dt in make_step}
+    for fn in steps.values():
+        fn()  # warm-up: cuDNN's choices
+    secs = {dt: [] for dt in steps}
+    peaks = {}
+    for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(MP_TURN_STEPS):
+            steps[dt]()
+        torch.cuda.synchronize()
+        secs[dt].append((time.perf_counter() - t0) / MP_TURN_STEPS)
+        peaks[dt] = max(peaks.get(dt, 0), torch.cuda.max_memory_allocated())
+    out = {}
+    for dt, fn in steps.items():
+        busy = device_busy(fn)
+        out[dt] = dict(step_ms=round(1e3 * float(np.mean(secs[dt])), 3),
+                       turns_ms=[round(1e3 * s, 3) for s in secs[dt]],
+                       peak_gib=round(peaks[dt] / 2**30, 3),
+                       busy_share=None if busy is None else busy["busy_share"])
+        if busy is not None:
+            log_profile(f"{what} {dt}", busy, pattern)
+    out["bf16_over_f32"] = round(out["bfloat16"]["step_ms"] / out["float32"]["step_ms"], 4)
+    return out
+
+
+def bf16_acoustic(smi: str):
+    """Phase 22 (a): the bfloat16 acoustic step at phase 12's shape, timed in
+    turns beside float32, MAS and the CTC forward and backward counted (and
+    their inputs float32), and the parity above.  Returns (launches, the
+    kernels' errors on the bfloat16 steps' inputs)."""
+    from e2e_tts_tpu_torch.config import default_config
+    from e2e_tts_tpu_torch.text.symbols import symbols
+    from e2e_tts_tpu_torch.train import (AcousticBatch, acoustic_optimizer, build_acoustic_model,
+                                         init_train_state, make_train_step)
+
+    cfg = default_config()
+    n_words = max(cfg.models.fastspeech2.max_seq_len, 256)
+    batch_np = train_batch(len(symbols))
+    parity = bf16_acoustic_parity(cfg, batch_np, len(symbols), n_words)
+    batch = AcousticBatch.from_numpy(batch_np, "cuda")
+
+    def maker(dtype):
+        def make():
+            model = build_acoustic_model(cfg, len(symbols), TRAIN_SPEAKERS, dtype=dtype)
+            opt = acoustic_optimizer(cfg.train.fastspeech2_optimizer,
+                                     cfg.models.fastspeech2.encoder_hidden)
+            state, step = init_train_state(model, opt), make_train_step(model, cfg, opt, n_words)
+            return lambda: step(state, batch)
+        return make
+
+    timing = train_turns({"float32": maker(torch.float32), "bfloat16": maker(torch.bfloat16)},
+                         "bf16 acoustic step", r"mas_kernel|ctc_")
+    model = build_acoustic_model(cfg, len(symbols), TRAIN_SPEAKERS, dtype=torch.bfloat16)
+    opt = acoustic_optimizer(cfg.train.fastspeech2_optimizer, cfg.models.fastspeech2.encoder_hidden)
+    state, step = init_train_state(model, opt), make_train_step(model, cfg, opt, n_words)
+    step(state, batch)
+    with recorded_train_inputs() as seen:
+        metrics = [step(state, batch)[1] for _ in range(MP_TURN_STEPS)]
+        launches = training_launches()
+    expect_launches("bf16 acoustic steps", launches, {k: MP_TURN_STEPS for k in launches})
+    dtypes = {k: str(v[0].dtype) if k != "ctc_bwd" else str(v[1].dtype) for k, v in seen.items()}
+    if set(dtypes.values()) != {"torch.float32"}:
+        raise AssertionError(f"bf16 acoustic steps handed the kernels {dtypes}")
+    if not all(p.dtype == torch.float32 for p in model.parameters()) or not all(
+            m.dtype == torch.float32 for m in state.opt_state.mu):
+        raise AssertionError("bf16 acoustic steps: master parameters or moments not float32")
+    errs = check_training_inputs(seen)
+    log("bf16 acoustic step " + json.dumps(dict(
+        card=smi, batch=[TRAIN_B, TRAIN_T, TRAIN_L], parity=parity, timing=timing,
+        kernel_input_dtypes=dtypes, last_metrics=check_finite("bf16 acoustic steps", metrics))))
+    return launches, errs
+
+
+def bf16_vocoder(smi: str) -> None:
+    """Phase 22 (b): the bfloat16 HiFi-GAN V1 training form with MPD/MSD in
+    float32 at phase 13's shape: one step at phase 13's 2 parity rows on the
+    card, on the CPU in bfloat16 and on the CPU in float64, the metrics and
+    every gradient (from Adam's first moments) by ``bf16_oracle``; then the
+    step timed in turns beside float32."""
+    from e2e_tts_tpu_torch.config import default_config
+    from e2e_tts_tpu_torch.models.vocoder import build_generator
+    from e2e_tts_tpu_torch.nn.discriminators import build_discriminators
+    from e2e_tts_tpu_torch.train import (VocoderBatch, gan_optimizer, init_vocoder_train_state,
+                                         make_vocoder_train_step)
+
+    cfg = default_config()
+    batch_np = vocoder_batch()
+
+    def modules(dtype, device):
+        return (build_generator(cfg, "hifigan", train=True, device=device, seed=0, dtype=dtype),
+                *build_discriminators(device, seed=0))
+
+    def run(mods, device, rows=VOC_PARITY_ROWS):
+        g_opt, d_opt = (gan_optimizer(cfg.train.hifigan_optimizer) for _ in range(2))
+        state = init_vocoder_train_state(mods[0], g_opt, d_opt, *mods[1:])
+        step = make_vocoder_train_step(mods[0], cfg, g_opt, d_opt, "hifigan", *mods[1:])
+        batch = VocoderBatch.from_numpy([a[:rows] for a in batch_np], device)
+        if next(mods[0].parameters()).dtype == torch.float64:
+            batch = to_dtype(batch, torch.float64)
+        return state, step, batch
+
+    t0 = time.perf_counter()
+    cpu = modules(torch.bfloat16, "cpu")
+    gpu = [copy.deepcopy(m).to("cuda") for m in cpu]
+    f64 = [m.double() for m in modules(torch.float32, "cpu")]
+    for m, src in zip(f64, cpu):
+        m.load_state_dict(src.state_dict())
+    names = adam_names(cpu[0]) + adam_names(*cpu[1:])
+    out = {}
+    for key, mods, device in (("card", gpu, "cuda"), ("cpu", cpu, "cpu"), ("f64", f64, "cpu")):
+        state, step, batch = run(mods, device)
+        state, metrics = step(state, batch)
+        out[key] = ({k: v.item() for k, v in metrics.items()},
+                    dict(zip(names, state.g_opt_state.mu + state.d_opt_state.mu)))
+    metrics = bf16_oracle("bf16 vocoder metrics", *(out[k][0] for k in ("card", "cpu", "f64")))
+    grads = bf16_oracle("bf16 vocoder gradients", *(out[k][1] for k in ("card", "cpu", "f64")))
+    parity_s = time.perf_counter() - t0
+
+    def maker(dtype):
+        def make():
+            state, step, batch = run(modules(dtype, "cuda"), "cuda", VOC_B)
+            return lambda: step(state, batch)
+        return make
+
+    timing = train_turns({"float32": maker(torch.float32), "bfloat16": maker(torch.bfloat16)},
+                         "bf16 vocoder step")
+    log("bf16 vocoder step " + json.dumps(dict(
+        card=smi, batch=[VOC_B, VOC_FRAMES, VOC_FRAMES * HOP], parity_rows=VOC_PARITY_ROWS,
+        parity_s=round(parity_s, 2), metrics=metrics, gradients=grads, timing=timing)))
+
+
+def mixed_precision_cli(smi: str, work: str):
+    """Phase 22 (c): the training CLI on phase 18's corpus (phase 19's
+    prepared workdir files) with ``train.mixed_precision: true``: ``acoustic``
+    for MP_CLI_STEPS steps builds its model in bfloat16 (float32 in the
+    checkpoint), the loop's wall ms a step; ``e2e`` one step with that
+    config and with the float32 one, fresh workdirs, its first metrics equal.
+    Returns (the training kernels' launches, the recorded inputs)."""
+    import shutil
+
+    import e2e_tts_tpu_torch.train.acoustic_step as acoustic_step
+    from e2e_tts_tpu_torch.config import default_config, save_config
+    from e2e_tts_tpu_torch.text.symbols import symbols
+    from e2e_tts_tpu_torch.train.checkpoint import CheckpointManager
+
+    prepared = os.path.join(work, "cli")  # phase 19's
+    cfg = default_config()
+    paths = {}
+    for name, mixed in (("f32", False), ("mixed", True)):
+        paths[name] = os.path.join(work, f"mp_{name}.yaml")
+        save_config(cfg.replace(train=cfg.train.replace(mixed_precision=mixed)), paths[name])
+
+    def workdir(name):
+        w = os.path.join(work, f"mp_{name}")
+        os.makedirs(w)
+        for f in ("file_list.txt", "stats.json", "speakers.json"):
+            shutil.copy(os.path.join(prepared, f), w)
+        return w
+
+    built = []
+    real_build = acoustic_step.build_acoustic_model
+
+    def spy(*a, **k):
+        built.append(k.get("dtype", torch.float32))
+        return real_build(*a, **k)
+
+    acoustic_step.build_acoustic_model = spy
+    seconds, stamps, firsts = {}, [], {}
+    try:
+        w = workdir("acoustic")
+        with recorded_train_inputs() as seen:
+            _, step = run_cli(seconds, "acoustic", [
+                "acoustic", "--workdir", w, "--config", paths["mixed"], "--steps",
+                str(MP_CLI_STEPS), "--ckpt-every", "1000"],  # no validation: train steps only
+                on_step=lambda s, m: (torch.cuda.synchronize(), stamps.append(time.perf_counter())))
+            launches = training_launches()
+        for name in ("f32", "mixed"):
+            got = []
+            run_cli(seconds, f"e2e_{name}", ["e2e", "--workdir", workdir(f"e2e_{name}"), "--config",
+                                             paths[name], "--steps", "1"],
+                    on_step=lambda s, m: got.append({k: v.item() for k, v in m.items()}))
+            firsts[name] = got[0]
+    finally:
+        acoustic_step.build_acoustic_model = real_build
+    if step != MP_CLI_STEPS or built[0] != torch.bfloat16 or built[1:] != [torch.float32] * 2:
+        raise AssertionError(f"CLI mixed precision: step {step}, models built in {built}")
+    expect_launches("CLI acoustic (mixed precision)", launches,
+                    {k: MP_CLI_STEPS for k in launches})
+    with open(os.path.join(w, "speakers.json")) as f:
+        n_speakers = len(json.load(f))
+    tree = CheckpointManager(os.path.join(w, "acoustic_ckpt")).restore(
+        {"step": 0, "model": real_build(cfg, len(symbols), n_speakers)})
+    if not all(p.dtype == torch.float32 for p in tree["model"].parameters()):
+        raise AssertionError("CLI mixed precision: the checkpoint's parameters are not float32")
+    # the same float32 step twice: equal but for the card's unordered sums
+    e2e_diff = max(abs(firsts["mixed"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in firsts["f32"].items())
+    if sorted(firsts["mixed"]) != sorted(firsts["f32"]) or not e2e_diff < TRAIN_LOSS_RTOL:
+        raise AssertionError(f"CLI e2e: mixed_precision changed the first step's metrics: "
+                             f"{firsts['mixed']} vs {firsts['f32']}")
+    log("CLI mixed precision " + json.dumps(dict(
+        card=smi, subcommand_s=seconds, acoustic_steps=MP_CLI_STEPS,
+        loop_ms_a_step=round(step_wall_ms(stamps, 1, MP_CLI_STEPS), 3),  # as phase 19's
+        e2e_first_metrics_max_rel_diff=e2e_diff, checkpoint_step=tree["step"])))
+    return launches, seen
+
+
+def captured_vocoder_input(eng, text: str):
+    """The mel the engine's vocoder got for ``text``'s first batch."""
+    mels, real = [], eng._vocode
+    eng._vocode = lambda mel: (mels.append(mel), real(mel))[1]
+    try:
+        eng.synthesize(text)
+    finally:
+        del eng._vocode
+    return mels[0]
+
+
+def d2h_ms(codes) -> float:
+    """Host-clock ms of one device-to-host copy of ``codes`` (median)."""
+    out = []
+    for _ in range(CODEC_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codes.cpu()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(out))
+
+
+def serving_options(smi: str, eng) -> dict:
+    """Phase 22 (d): the 343-character request in float32 (phase 5's audible
+    engine) and bfloat16 (the same weights): the folded tail against the
+    generator (vocoder device ms, int16 within LSB_TOL mean), ``mulaw8``
+    against int16 (the device-to-host copy ms, request seconds), and
+    ``use_flash=False`` against the default (request seconds, flash launches
+    0 and > 0); the flash kernels held to their plain version on the
+    inputs those requests gave.  Returns ({dtype: the flash kernels' launch
+    counts in the counted requests}, {dtype: their worst error there})."""
+    from e2e_tts_tpu_torch.serve.engine import SynthesisEngine
+
+    text = REQUESTS[-1]
+    state = estimator(eng)
+    out, counts, errs = {}, {}, {}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        base = eng if dt == torch.float32 else SynthesisEngine.from_random(seed=0, dtype=dt)
+        if base is not eng:
+            base.vocoder.load_state_dict(eng.vocoder.state_dict())  # the audible scale
+        share = lambda **kw: SynthesisEngine(  # noqa: E731
+            base.config, base.acoustic, base.vocoder, base.speakers, base.stats, device="cuda",
+            dtype=dt, **kw)
+        engines = {"default": base, "folded": share(use_folded_vocoder=True),
+                   "mulaw8": share(transfer_codec="mulaw8")}
+        noflash = SynthesisEngine.from_random(seed=0, dtype=dt, use_flash=False)
+        noflash.vocoder.load_state_dict(eng.vocoder.state_dict())
+        engines["no_flash"] = noflash
+        for e in engines.values():
+            set_estimator(e, state)
+            e.synthesize(text)  # warm-up
+        audio, secs, flash = {}, {k: [] for k in engines}, {k: 0 for k in engines}
+        with recorded_inputs() as seen:
+            for k in list(engines) + list(engines)[::-1]:
+                set_estimator(engines[k], state)
+                before = sum(flash_counts().values())
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                audio[k] = engines[k].synthesize(text)
+                secs[k].append(time.perf_counter() - t0)
+                flash[k] += sum(flash_counts().values()) - before
+            counts[name] = flash_counts()
+        if flash["no_flash"] != 0 or flash["default"] <= 0:
+            raise AssertionError(f"{name}: flash launches {flash} with use_flash False / default")
+        if dt == torch.bfloat16:
+            check_flash_counts(counts[name], f"{name} serving options")
+        errs[name] = check_serving_inputs(seen, f"{name} serving options")
+        folded_lsb = lsb_diff(f"{name} folded vs unfolded vocoder", audio["folded"],
+                              audio["default"])
+        mel = captured_vocoder_input(base, text)
+        wave = base._vocode(mel)
+        codes = {c: engines[k]._encode_transfer(wave) for c, k in (("int16", "default"),
+                                                                   ("mulaw8", "mulaw8"))}
+        out[name] = dict(
+            request_s={k: round(float(np.mean(v)), 4) for k, v in secs.items()},
+            flash_launches=flash, folded_vs_unfolded_mean_lsb=folded_lsb,
+            vocoder_ms={"unfolded": round(time_ms(lambda: base._vocode(mel)), 4),
+                        "folded": round(time_ms(lambda: engines["folded"]._vocode(mel)), 4)},
+            vocoder_device_ms={
+                "unfolded": round(device_ms(lambda: base._vocode(mel)), 4),
+                "folded": round(device_ms(lambda: engines["folded"]._vocode(mel)), 4)},
+            vocoder_batch=list(mel.shape),
+            d2h_ms={c: round(d2h_ms(v), 4) for c, v in codes.items()},
+            d2h_bytes={c: int(v.numel() * v.element_size()) for c, v in codes.items()})
+    set_estimator(eng, state)
+    log("serving options (343 characters) " + json.dumps(dict(card=smi, **out)))
+    return counts, errs
+
+
+def mixed_precision_and_options(smi: str, eng, work: str):
+    """Phase 22: bfloat16 acoustic and vocoder training, the CLI under
+    ``mixed_precision``, the engine's folded tail, codec and flash switch.
+    Returns (the training kernels' launches, their errors on
+    the phase's inputs, the flash kernels' launches and errors in its counted
+    requests by dtype)."""
+    launches, errs = bf16_acoustic(smi)
+    bf16_vocoder(smi)
+    cli_launches, seen = mixed_precision_cli(smi, work)
+    cli_errs = check_training_inputs(seen)
+    flash, flash_errs = serving_options(smi, eng)
+    return ({k: launches[k] + cli_launches[k] for k in launches},
+            {k: max(errs[k], cli_errs[k]) for k in errs}, flash, flash_errs)
+
+
 def main() -> int:
     smi = environment()
     build()
@@ -3496,23 +3945,32 @@ def main() -> int:
         path_errs.append(router_err)
         log(f"router, voice conversion, import and scoring phase: "
             f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mp_launches, mp_errs, options_flash, options_errs = mixed_precision_and_options(
+            smi, eng, work)
+        path_errs.append(options_errs["float32"])
+        log(f"mixed precision and serving options phase: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
     source = "e2e_tts_tpu_torch/kernels/csrc/flash_attention.cu"
     for name, dtypes, prefix, src, n, errs in (
             ("flash_attention", ("float32",), "kernel", source,
-             launches["flash_attention"] + router_launches, path_errs),
+             launches["flash_attention"] + router_launches
+             + options_flash["float32"]["flash_attention"], path_errs),
             # the 16-bit kernels: timed in bfloat16, the serving dtype, forced
             # in turns; the error in the dtype's values (within one ulp of the
             # plain version, phase 3); launches in phase 16's batch-8 run,
             # where the plan takes flash_fwd_16_sm90 (heads of 192): the
             # mma.sync kernel runs there only where D % 8 != 0
             ("flash_attention_16", ("bfloat16", "float16"), "mma_sync", source,
-             counts["flash_attention_16"], [bf16_err]),
+             counts["flash_attention_16"] + options_flash["bfloat16"]["flash_attention_16"],
+             [bf16_err, options_errs["bfloat16"]]),
             ("flash_attention_16_sm90", ("bfloat16", "float16"), "sm90",
              "e2e_tts_tpu_torch/kernels/csrc/flash_attention_sm90.cuh",
-             counts["flash_attention_16_sm90"], [bf16_err])):
+             counts["flash_attention_16_sm90"]
+             + options_flash["bfloat16"]["flash_attention_16_sm90"],
+             [bf16_err, options_errs["bfloat16"]])):
         rows = [r for r in attn if r["dtype"] in dtypes and f"{prefix}_ms" in r]
         main_row = next(r for r in rows if r["shape"] == (16, 2048, 192)
                         and r["dtype"] == dtypes[0])  # the decoder's largest bucket
@@ -3531,7 +3989,7 @@ def main() -> int:
             # F.ctc_loss forward and backward: no PyTorch call runs the backward alone
             ("ctc_bwd", "e2e_tts_tpu/ops/ctc.py:30", train_row["ctc_library_ms"])):
         errs = [train_errs[name], e2e_errs[name], corpus_errs[name], cli_errs[name],
-                family_errs[name]] + [
+                family_errs[name], mp_errs[name]] + [
             r[{"mas": "mas_err", "ctc_fwd": "ctc_loss_err", "ctc_bwd": "ctc_grad_err"}[name]]
             for r in train_kernels]
         kernels.append(dict(
@@ -3539,7 +3997,7 @@ def main() -> int:
             source=f"e2e_tts_tpu_torch/kernels/csrc/{'mas' if name == 'mas' else 'ctc'}.cu",
             replaces=replaces,
             launches=(train_launches[name] + e2e_launches[name] + corpus_launches[name]
-                      + cli_launches[name] + family_launches[name]),
+                      + cli_launches[name] + family_launches[name] + mp_launches[name]),
             max_abs_err=max(errs),
             ms=train_row[f"{name}_ms"], plain_ms=train_row[f"{name}_plain_ms"],
             bound_ms=train_row[f"{name}_bound_ms"], bound_by=train_row[f"{name}_bound_by"],

@@ -20,7 +20,10 @@ from typing import Dict
 
 import torch
 
+from ..nn.common import island
 from ..ops import forward_sum_loss, sum_by_words
+
+_PREDICTIONS = ("log_duration_prediction", "pitch_prediction", "energy_prediction")
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -104,6 +107,12 @@ def fastspeech2_loss(outputs: Dict, mel_target, txt_lens, mel_lens, word_ids, n_
     duration loss reads ``duration_target`` where given, else the durations
     the forward used; the ``ctc`` and ``bin`` terms are there only with
     ``learn_alignment`` and an aligner's outputs."""
+    # a 16-bit model's predictions enter the loss in float32: every term is
+    # float32, as JAX promotes them against the float32 targets (and the
+    # few that JAX keeps in bfloat16, the duration's exp and the uv
+    # softplus, are float32 here too)
+    outputs = {k: island(v) if k in _PREDICTIONS and v is not None else v
+               for k, v in outputs.items()}
     txt_mask, mel_mask = outputs["txt_mask"], outputs["mel_mask"]
     losses = mel_losses(outputs["mel"], outputs["postnet_mel"], mel_target, mel_mask)
     dur_target = duration_target if duration_target is not None else outputs["duration_rounded"]

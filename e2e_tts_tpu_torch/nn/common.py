@@ -65,6 +65,13 @@ def cast_param(module: nn.Module, name: str) -> Optional[torch.Tensor]:
     return hit[1]
 
 
+def weak(c: float, dtype: torch.dtype) -> float:
+    """The Python constant ``c`` as JAX applies it to an array of ``dtype``:
+    a weakly typed scalar takes the array's type, so next to a bfloat16
+    array 0.9 is 0.8984375 (torch would keep it in float32)."""
+    return torch.tensor(c, dtype=dtype).item()
+
+
 def island(x: torch.Tensor) -> torch.Tensor:
     """``x`` in at least float32: the JAX package's float32 islands under a
     16-bit compute dtype (``mel_linear``, the postnet, the vocoders' last
@@ -73,8 +80,14 @@ def island(x: torch.Tensor) -> torch.Tensor:
 
 
 def grad_scale(x: torch.Tensor, alpha: float) -> torch.Tensor:
-    """Identity in value; the gradient reaches ``x`` scaled by ``alpha``."""
-    return x.detach() * (1.0 - alpha) + alpha * x
+    """Identity in value; the gradient reaches ``x`` scaled by ``alpha``.  On
+    a 16-bit ``x`` it is the JAX package's arithmetic as XLA runs it: both
+    products rounded to the dtype with the constants in the dtype
+    (``weak``), their sum left in float32 for the consumer to cast."""
+    if x.dtype not in HALF:
+        return x.detach() * (1.0 - alpha) + alpha * x
+    return (island(x.detach() * weak(1.0 - alpha, x.dtype))
+            + island(x * weak(alpha, x.dtype)))
 
 
 def dropout(x: torch.Tensor, rate: float, rng: Optional[torch.Generator]) -> torch.Tensor:
@@ -88,7 +101,7 @@ def dropout(x: torch.Tensor, rate: float, rng: Optional[torch.Generator]) -> tor
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
     keep = torch.rand(x.shape, generator=rng, device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+    return torch.where(keep, x / weak(keep_prob, x.dtype), torch.zeros_like(x))
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -310,6 +323,33 @@ def same_padding(length: int, kernel_size: int, stride: int = 1, dilation: int =
     return total // 2, total - total // 2
 
 
+class _ConvTranspose1dHalfCPU(torch.autograd.Function):
+    """``F.conv_transpose1d`` of 16-bit CPU tensors whose input gradient, the
+    adjoint strided convolution, is computed in float32 from the 16-bit
+    operands and rounded once, as a 16-bit convolution does: PyTorch's CPU
+    (oneDNN) bfloat16 convolution at stride > 1 gives a wrong result (as far
+    from float64 as the result's own size at HiFi-GAN's upsampling shapes),
+    and the transposed convolution's backward is one."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride: int, padding: int):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding)
+        return F.conv_transpose1d(x, w, stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        stride, padding = ctx.conf
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = F.conv1d(gy.float(), w.float(), stride=stride, padding=padding).to(gy.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = torch.ops.aten.convolution_backward(
+                gy, x, w, None, [stride], [padding], [1], True, [0], 1, [False, True, False])[1]
+        return gx, gw, None, None
+
+
 class _WeightNorm(nn.Module):
     """Weight norm as trainable parameters, one for one with the JAX
     package's leaves: ``v`` (normal(0.01) from ``generator``), ``g`` (``||v||``
@@ -317,11 +357,14 @@ class _WeightNorm(nn.Module):
     ``w = g * v / max(||v||, 1e-12)``, the norm taken for each output channel
     over every other axis (``norm_dims``), as JAX takes it over all but the
     last axis of its (..., in, out) kernel.  Autograd and the optimizer see v
-    and g, never w."""
+    and g, never w.  In a 16-bit compute ``dtype`` the kernel is made in
+    float32 and cast, and the input, the product and the bias are in the
+    dtype, as the JAX modules' ``astype(self.dtype)``."""
 
     def __init__(self, shape, out_dim: int, *, generator: torch.Generator, device=None,
-                 std: float = 0.01):
+                 std: float = 0.01, dtype=None):
         super().__init__()
+        self.dtype = compute_dtype(dtype)
         self.out_dim = out_dim
         self.norm_dims = tuple(i for i in range(len(shape)) if i != out_dim)
         v = _normal(shape, std, generator, device)
@@ -335,6 +378,13 @@ class _WeightNorm(nn.Module):
         view[self.out_dim] = -1
         return self.v * (self.g.view(view) / torch.clamp(norm, min=1e-12))
 
+    def _operands(self, x: torch.Tensor):
+        """(input, kernel, bias) in the compute dtype."""
+        w, b = self.weight(), self.bias
+        if self.dtype is None:
+            return x, w, b
+        return x.to(self.dtype), w.to(self.dtype), b.to(self.dtype)
+
 
 class WNConv1d(_WeightNorm):
     """Weight-normalised 1-D convolution (the JAX ``WNConv1d``), ``v`` as
@@ -343,9 +393,9 @@ class WNConv1d(_WeightNorm):
 
     def __init__(self, d_in: int, d_out: int, kernel_size: int, stride: int = 1,
                  dilation: int = 1, groups: int = 1, padding="SAME", *,
-                 generator: torch.Generator, device=None):
+                 generator: torch.Generator, device=None, dtype=None):
         super().__init__((d_out, d_in // groups, kernel_size), 0, generator=generator,
-                         device=device)
+                         device=device, dtype=dtype)
         self.kernel_size, self.stride, self.dilation, self.groups = (
             kernel_size, stride, dilation, groups)
         self.padding = padding if isinstance(padding, str) else tuple(padding)
@@ -356,8 +406,11 @@ class WNConv1d(_WeightNorm):
                        if self.padding == "SAME" else self.padding)
         if left != right:
             x, left = F.pad(x, (left, right)), 0
-        return F.conv1d(x, self.weight(), self.bias, stride=self.stride, padding=left,
-                        dilation=self.dilation, groups=self.groups)
+        x, w, b = self._operands(x)
+        conf = (self.stride, left, self.dilation, self.groups)
+        if w.dtype in HALF:  # the product rounded, then the bias added and rounded, as JAX
+            return _add_bias(F.conv1d(x, w, None, *conf), b, (-1, 1))
+        return F.conv1d(x, w, b, *conf)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, C_in) -> (B, T_out, C_out)."""
@@ -372,14 +425,21 @@ class WNConvTranspose1d(_WeightNorm):
     become T * u samples."""
 
     def __init__(self, d_in: int, d_out: int, kernel_size: int, stride: int, *,
-                 generator: torch.Generator, device=None):
-        super().__init__((d_in, d_out, kernel_size), 1, generator=generator, device=device)
+                 generator: torch.Generator, device=None, dtype=None):
+        super().__init__((d_in, d_out, kernel_size), 1, generator=generator, device=device,
+                         dtype=dtype)
         self.stride = stride
         self.padding = (kernel_size - stride) // 2
 
     def conv_ncw(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose1d(x, self.weight(), self.bias, stride=self.stride,
-                                  padding=self.padding)
+        x, w, b = self._operands(x)
+        if w.dtype not in HALF:
+            return F.conv_transpose1d(x, w, b, stride=self.stride, padding=self.padding)
+        if not x.is_cuda and torch.is_grad_enabled() and w.requires_grad:
+            y = _ConvTranspose1dHalfCPU.apply(x, w, self.stride, self.padding)
+        else:
+            y = F.conv_transpose1d(x, w, stride=self.stride, padding=self.padding)
+        return _add_bias(y, b, (-1, 1))  # the bias after the rounded product, as JAX
 
 
 class WNConv2d(_WeightNorm):

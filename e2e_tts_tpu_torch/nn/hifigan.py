@@ -11,9 +11,11 @@ generator, so a training form fused at init is its seed's serving form.  The
 stack runs channels-first inside; the public ``forward`` takes
 (B, T, n_mels) like the JAX package.
 
-The serving form takes a compute ``dtype`` (``nn/common.py``), as the JAX
+Both forms take a compute ``dtype`` (``nn/common.py``), as the JAX
 generators do: the trunk runs in it, and ``conv_post`` with what follows is
-a float32 island (float64 under ``.double()``).
+a float32 island (float64 under ``.double()``).  The training form's (v, g)
+stay float32 in any dtype, so its gradients and Adam moments are float32,
+as JAX trains ``build_generator(config, kind, dtype=jnp.bfloat16)``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .common import (Conv1d, ConvTranspose1d, WNConv1d, WNConvTranspose1d, _WeightNorm,
-                     compute_dtype, island)
+                     compute_dtype, island, weak)
 
 LRELU_SLOPE = 0.1
 # the reference's final activation uses torch's default slope, not LRELU_SLOPE
@@ -34,25 +36,17 @@ WN_STD = 0.01  # the JAX package's weight-norm init: v ~ normal(0.01), w = v
 
 
 def _lrelu(x, slope: float = LRELU_SLOPE):
-    return F.leaky_relu(x, slope)
+    # the slope in x's dtype, as JAX's weakly typed constant
+    return F.leaky_relu(x, weak(slope, x.dtype))
 
 
 def _conv(weight_norm: bool, d_in: int, d_out: int, kernel_size: int, dilation: int = 1,
           dtype=None, **kw):
-    """A stride-1 SAME convolution: weight-normalised (training, float32) or
-    plain (serving, in ``dtype``)."""
+    """A stride-1 SAME convolution in ``dtype``: weight-normalised (training)
+    or plain (serving)."""
     if weight_norm:
-        return WNConv1d(d_in, d_out, kernel_size, dilation=dilation, **kw)
+        return WNConv1d(d_in, d_out, kernel_size, dilation=dilation, dtype=dtype, **kw)
     return Conv1d(d_in, d_out, kernel_size, dilation, std=WN_STD, dtype=dtype, **kw)
-
-
-def _generator_dtype(weight_norm: bool, dtype):
-    """A generator's compute dtype: the serving form's; the training form
-    computes in its parameters' type."""
-    if weight_norm and compute_dtype(dtype) is not None:
-        raise NotImplementedError("the training form computes in float32; mixed precision "
-                                  "training is queued (ROADMAP.md, Queue A, A14)")
-    return compute_dtype(dtype)
 
 
 class ResBlock1(nn.Module):
@@ -108,7 +102,7 @@ class _GeneratorTrunk(nn.Module):
         ch_in = upsample_initial_channel
         for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
             ch = upsample_initial_channel // (2 ** (i + 1))
-            self.ups.append(WNConvTranspose1d(ch_in, ch, k, u, **kw) if weight_norm
+            self.ups.append(WNConvTranspose1d(ch_in, ch, k, u, dtype=dtype, **kw) if weight_norm
                             else ConvTranspose1d(ch_in, ch, k, u, std=WN_STD, dtype=dtype, **kw))
             self.resblocks.append(nn.ModuleList(
                 Res(ch, rk, tuple(rd), weight_norm=weight_norm, dtype=dtype, **kw)
@@ -149,7 +143,7 @@ class HifiGanGenerator(nn.Module):
                             resblock_kernel_sizes=resblock_kernel_sizes,
                             resblock_dilation_sizes=resblock_dilation_sizes,
                             resblock_type=resblock_type)
-        self.dtype = _generator_dtype(self.weight_norm, dtype)
+        self.dtype = compute_dtype(dtype)
         g = generator if generator is not None else torch.Generator().manual_seed(seed)
         kw = dict(generator=g, device=device)
         self.trunk = _GeneratorTrunk(n_mels, upsample_rates, upsample_kernel_sizes,
@@ -202,7 +196,7 @@ class IstftNetGenerator(nn.Module):
                             resblock_kernel_sizes=resblock_kernel_sizes,
                             resblock_dilation_sizes=resblock_dilation_sizes,
                             resblock_type=resblock_type)
-        self.dtype = _generator_dtype(self.weight_norm, dtype)
+        self.dtype = compute_dtype(dtype)
         g = generator if generator is not None else torch.Generator().manual_seed(seed)
         kw = dict(generator=g, device=device)
         self.n_fft = gen_istft_n_fft

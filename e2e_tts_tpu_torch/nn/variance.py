@@ -32,8 +32,8 @@ from ..ops import (
     regulate_length,
     sequence_mask,
 )
-from .common import (Conv1d, Embedding, LayerNorm, Linear, cast, compute_dtype, dropout,
-                     grad_scale, t2t_sinusoid)
+from .common import (HALF, Conv1d, Embedding, LayerNorm, Linear, cast, compute_dtype, dropout,
+                     grad_scale, t2t_sinusoid, weak)
 
 NEG_INF = -1e9
 
@@ -163,6 +163,16 @@ class VariancePredictor(nn.Module):
         return self.stack(x + self.pos_alpha * pos[positions], None, rng)
 
 
+def _log_softmax(x: torch.Tensor) -> torch.Tensor:
+    """``log_softmax`` over the last axis; in a 16-bit dtype as
+    ``jax.nn.log_softmax`` composes it, each step rounded to the dtype
+    (torch's fused kernel rounds once)."""
+    if x.dtype not in HALF:
+        return torch.log_softmax(x, dim=-1)
+    shifted = x - x.max(dim=-1, keepdim=True).values.detach()
+    return shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
+
+
 class AlignmentEncoder(nn.Module):
     """Gaussian-distance text/mel aligner.  ``forward`` returns (attn_soft,
     attn_logprob), both (B, T_mel, T_text): the scaled negative squared
@@ -192,9 +202,9 @@ class AlignmentEncoder(nn.Module):
         q2 = torch.sum(q * q, dim=-1)[:, :, None]
         k2 = torch.sum(k * k, dim=-1)[:, None, :]
         qk = torch.einsum("bqc,bkc->bqk", q, k)
-        attn = -self.temperature * (q2 + k2 - 2.0 * qk)
+        attn = weak(-self.temperature, q.dtype) * (q2 + k2 - 2.0 * qk)
         if attn_prior is not None:
-            attn = torch.log_softmax(attn, dim=-1) + torch.log(attn_prior + 1e-8)
+            attn = _log_softmax(attn) + torch.log(attn_prior + 1e-8)
         attn_logprob = attn
         attn = torch.where(txt_mask[:, None, :], attn, torch.full_like(attn, NEG_INF))
         return torch.softmax(attn, dim=-1), attn_logprob
@@ -335,9 +345,13 @@ class VarianceAdaptor(nn.Module):
 
         if attn_soft is not None and step < self.binarization_start_steps:
             # soft expansion while the aligner warms up
-            x = torch.einsum("btl,blh->bth", attn_soft, x)
+            x = torch.einsum("btl,blh->bth", attn_soft, x.to(attn_soft.dtype))
         else:
             x, _, _ = regulate_length(x, dur_int, T)
+        if attn_soft is not None:
+            # JAX selects between both expansions with ``jnp.where``, which
+            # promotes a 16-bit x to the attention's float32 either way
+            x = x.to(torch.promote_types(x.dtype, attn_soft.dtype))
         mel_mask = sequence_mask(mel_lens, T)
 
         if "frame_level" in (self.pitch_feature, self.energy_feature):

@@ -16,6 +16,12 @@ The state holds what JAX threads through its step: the step count, the model
 (parameters and BatchNorm statistics, updated in place), the optimizer state
 and the dropout generator (a ``torch.Generator`` on the model's device, in
 place of JAX's rng key).  Metrics are device scalars (no host sync).
+
+Mixed precision is the model's compute dtype, as in JAX: a model built in
+``torch.bfloat16`` (``build_acoustic_model(..., dtype=)``) casts its float32
+parameters per call under autograd (``nn/common.cast_param``), so the
+gradients, the Adam moments and the updates stay float32.  The aligner's
+attention reaches MAS and the CTC in float32 (its log prior promotes it).
 """
 
 from __future__ import annotations
@@ -61,13 +67,15 @@ class AcousticBatch(NamedTuple):
 
 def build_acoustic_model(config, n_symbols: int, n_speakers: int,
                          stats: Optional[FeatureStats] = None, *, dropout: bool = True,
-                         device=None, seed: int = 0) -> FastSpeech2:
+                         device=None, seed: int = 0, dtype=torch.float32) -> FastSpeech2:
     """The FastSpeech2 of ``config`` (a full ``Config``) as the JAX package
     trains it: attention through plain matmul/softmax (``use_flash=False``),
     weights from ``torch.Generator().manual_seed(seed)``, on ``device`` (CUDA
-    when None, which raises without a card).  ``dropout=False`` zeroes every
-    dropout rate (the active block family's, the predictors', the postnet's
-    hard-coded 0.5)."""
+    when None, which raises without a card), computing in ``dtype``
+    (``torch.bfloat16`` for ``train.mixed_precision``, as the JAX CLI builds
+    it; the parameters stay float32 either way).  ``dropout=False`` zeroes
+    every dropout rate (the active block family's, the predictors', the
+    postnet's hard-coded 0.5)."""
     fs2 = config.models.fastspeech2
     if not dropout:
         bb = fs2.building_block
@@ -78,7 +86,8 @@ def build_acoustic_model(config, n_symbols: int, n_speakers: int,
                 variance_predictor=fs2.variance.variance_predictor.replace(dropout=0.0)))
     model = FastSpeech2(fs2, n_symbols, n_speakers, config.audio.mel.channels,
                         stats if stats is not None else FeatureStats(), use_flash=False,
-                        device=device, generator=torch.Generator().manual_seed(seed))
+                        device=device, generator=torch.Generator().manual_seed(seed),
+                        dtype=dtype)
     if not dropout:
         model.postnet.dropout = 0.0
     return model
@@ -97,12 +106,6 @@ def init_train_state(model: FastSpeech2, optimizer: ScheduledAdam, seed: int = 0
     device = next(model.parameters()).device
     rng = torch.Generator(device=device).manual_seed(seed)
     return AcousticTrainState(0, model, optimizer.init(list(model.parameters())), rng)
-
-
-def _check_supported(config) -> None:
-    if config.train.mixed_precision:
-        raise NotImplementedError(
-            "mixed_precision training is not ported yet (ROADMAP.md, Queue A, A14)")
 
 
 def forward_inputs(config, batch: AcousticBatch) -> dict:
@@ -135,7 +138,6 @@ def make_train_step(model: FastSpeech2, config, optimizer: ScheduledAdam, n_word
     """Returns ``train_step(state, batch) -> (state, metrics)``; the state is
     updated in place and returned.  Metrics: every loss term, ``total`` and
     ``grad_norm`` (before clipping)."""
-    _check_supported(config)
     grad_accum = max(int(config.train.grad_acc_step), 1)
     params = list(model.parameters())
 
@@ -171,7 +173,6 @@ def make_train_step(model: FastSpeech2, config, optimizer: ScheduledAdam, n_word
 def make_eval_step(model: FastSpeech2, config, n_words: int):
     """Returns ``eval_step(state, batch) -> metrics``: eval mode (no dropout,
     BatchNorm on its running statistics), no gradient, no optimizer."""
-    _check_supported(config)
 
     @torch.no_grad()
     def eval_step(state: AcousticTrainState, batch: AcousticBatch):

@@ -87,13 +87,16 @@ def _load_workdir(workdir: str):
     return entries, stats, speakers
 
 
-def _acoustic_model(config, args, speakers, stats, device):
+def _acoustic_model(config, args, speakers, stats, device, dtype=torch.float32):
+    """The acoustic model, in float32 unless ``dtype`` says otherwise: as in
+    the JAX CLI, only ``acoustic`` reads ``train.mixed_precision``; ``e2e``,
+    ``generate-mels`` and ``export`` build in float32 whatever it says."""
     from ..nn.variance import FeatureStats
     from .acoustic_step import build_acoustic_model
 
     n_symbols, _ = _lang_symbols(args.lang)
     return build_acoustic_model(config, n_symbols, len(speakers), FeatureStats.from_dict(stats),
-                                device=device, seed=config.train.seed)
+                                device=device, seed=config.train.seed, dtype=dtype)
 
 
 def _acoustic_dataset(config, args, entries, speakers, stats):
@@ -159,7 +162,10 @@ def cmd_acoustic(args, on_step: Optional[Callable] = None):
     train_entries, valid_entries = split_train_valid(entries, seed=config.train.seed)
     dataset = _acoustic_dataset(config, args, train_entries, speakers, stats)
     valid_dataset = _acoustic_dataset(config, args, valid_entries, speakers, stats)
-    model = _acoustic_model(config, args, speakers, stats, device)
+    # bfloat16 compute over float32 parameters (gradients, moments and
+    # checkpoints float32), as the JAX CLI trains with mixed_precision
+    model = _acoustic_model(config, args, speakers, stats, device,
+                            torch.bfloat16 if config.train.mixed_precision else torch.float32)
     optimizer = acoustic_optimizer(config.train.fastspeech2_optimizer,
                                    config.models.fastspeech2.encoder_hidden)
     n_words = max(config.models.fastspeech2.max_seq_len, 256)

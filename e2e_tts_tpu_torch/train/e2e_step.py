@@ -21,7 +21,7 @@ import torch
 from ..audio.mel import MelParams
 from ..models.acoustic_loss import fastspeech2_loss
 from ..nn.discriminators import build_discriminators
-from .acoustic_step import AcousticBatch, _check_supported, forward_inputs
+from .acoustic_step import AcousticBatch, forward_inputs
 from .optim import AdamState, ScheduledAdam
 from .vocoder_step import (MEL_LOSS_WEIGHT, _grads, discriminator_params,
                            gan_discriminator_losses, gan_generator_losses)
@@ -90,7 +90,6 @@ def make_e2e_train_step(model, generator, config, am_optimizer: ScheduledAdam,
     ``train_step.mpd`` and ``train_step.msd``.  Metrics: ``total, generator,
     fm, mel, variance, duration, pitch, energy, postnet, ctc, bin,
     discriminator, mpd, msd``."""
-    _check_supported(config)
     if mpd is None or msd is None:
         mpd, msd = build_discriminators(next(model.parameters()).device)
     mel_params = MelParams.from_config(config.audio, loss=True)

@@ -371,8 +371,9 @@ def test_engine_dtype_is_the_models():
     with pytest.raises(TypeError):
         FastSpeech2(f32.acoustic.config, len(symbols), 1, 80, FeatureStats(), device="cpu",
                     dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="A14"):
-        build_generator(f32.config, train=True, device="cpu", dtype=torch.bfloat16)
+    trained = build_generator(f32.config, train=True, device="cpu", dtype=torch.bfloat16)
+    assert trained.dtype == torch.bfloat16  # the training form computes in it now (A14)
+    assert all(p.dtype == torch.float32 for p in trained.parameters())
 
 
 # --- float64 (the GAN gradients' oracle) -------------------------------------------------

@@ -10,7 +10,8 @@ default-width train step on a bucketed batch of it; the four other block
 families' encoders and decoders against the CPU, and the reformer's
 rotation table on the card; the router's ``vie_tiny`` request, the kNN
 voice-conversion match and the learned MOS scorer on the card against the
-CPU.
+CPU; a bfloat16 train step against the float64 oracle, and the folded
+HiFi-GAN tail against the generator.
 
 Every test here is marked ``cuda`` and skips without a GPU, but one: the
 data entry points' ``device=None`` raising without a card runs on the CPU
@@ -896,3 +897,46 @@ def test_mos_predictor_on_cuda_matches_cpu(cuda):
     for path in anchors:
         audio, sr = read_wav(path)
         assert abs(gpu(audio, sr) - cpu(audio, sr)) < 1e-4, path
+
+
+# --- mixed precision and the folded tail ----------------------------------------------------
+
+def test_bf16_acoustic_step_on_cuda_meets_the_float64_oracle(cuda):
+    """A bfloat16 step of the one-layer model at 4 rows on the card against
+    the float64 oracle (``chip_smoke.bf16_acoustic_parity``): every loss term
+    and gradient within max(2 x the CPU bfloat16 run's distance, 2**-8)."""
+    import chip_smoke
+    from e2e_tts_tpu_torch.config import default_config
+
+    cfg = default_config()
+    fs2 = cfg.models.fastspeech2
+    fs2 = fs2.replace(encoder_layers=1, decoder_layers=1, encoder_hidden=64, decoder_hidden=64,
+                      building_block=fs2.building_block.replace(
+                          transformer=fs2.building_block.transformer.replace(conv_filter_size=64)),
+                      postnet=fs2.postnet.replace(embedding_dim=64, conv_layers=2))
+    cfg = cfg.replace(models=cfg.models.replace(fastspeech2=fs2))
+    torch.backends.cudnn.allow_tf32 = False
+    out = chip_smoke.bf16_acoustic_parity(cfg, chip_smoke.train_batch(40, B=4, L=32, T=128), 40,
+                                          256)
+    assert out["gradients"]["tensors"] > 50
+
+
+def test_folded_vocoder_on_cuda_matches_the_generator(cuda):
+    """``FoldedHifiGan`` of ``vie_tiny``'s generator on the card: float32
+    waveform MAE < 1e-5 against the unfolded generator; the engine with
+    ``use_folded_vocoder=True`` within 1 LSB mean of the default engine."""
+    from e2e_tts_tpu_torch.kernels.folded_tail import FoldedHifiGan
+    from e2e_tts_tpu_torch.serve.engine import SynthesisEngine
+
+    torch.backends.cudnn.allow_tf32 = False
+    eng = SynthesisEngine.from_checkpoint("assets/bundles/vie_tiny", device="cuda")
+    mel = torch.from_numpy((np.random.RandomState(3).randn(2, 64, 80) - 4.0).astype(np.float32))
+    mel = mel.to(cuda)
+    want = eng.vocoder(mel)
+    got = FoldedHifiGan(eng.vocoder)(mel)
+    assert (got - want).abs().mean().item() < 1e-5
+    folded = SynthesisEngine.from_checkpoint("assets/bundles/vie_tiny", device="cuda",
+                                             use_folded_vocoder=True)
+    text = "xin chào việt nam, hôm nay trời đẹp quá"
+    a, b = folded.synthesize(text), eng.synthesize(text)
+    assert len(a) == len(b) and np.abs(a.astype(np.int32) - b).mean() < 1.0

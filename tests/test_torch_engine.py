@@ -255,11 +255,14 @@ def test_mel_content_features_matches_jax():
 
 def test_engine_options_the_port_does_not_take():
     _, peng = _engines()
-    # the TPU's folded vocoder (B2) and the mu-law transfer codec are not ported
+    # the serving mesh (ROADMAP A12) is not ported; the folded vocoder and the
+    # transfer codec are (tests/test_torch_folded.py)
     with pytest.raises(TypeError):
-        SynthesisEngine.from_checkpoint(VIE_TINY, device="cpu", use_folded_vocoder=True)
+        SynthesisEngine.from_checkpoint(VIE_TINY, device="cpu", serving_devices=2)
     with pytest.raises(TypeError):
-        SynthesisEngine.from_checkpoint(VIE_TINY, device="cpu", transfer_codec="mulaw8")
+        SynthesisEngine.from_checkpoint(VIE_TINY, device="cpu", global_mesh=True)
+    assert SynthesisEngine.from_checkpoint(VIE_TINY, device="cpu",
+                                           use_folded_vocoder=True).use_folded_vocoder
 
 
 def test_port_written_bundle_served_by_jax(tmp_path):

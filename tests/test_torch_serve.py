@@ -396,13 +396,16 @@ def test_queue_amortizes_dispatches_and_a_failure_stays_in_its_group():
 # --- the host transfer format ----------------------------------------------------------
 
 def test_port_engine_hands_int16_and_takes_no_codec():
-    """The port has no mu-law transfer codec: its int16 output agrees with the
-    JAX engine's in its lossless mode, and the codec argument is rejected."""
+    """The port's default wire format is lossless int16 (JAX's is mu-law on an
+    accelerator): its output agrees with the JAX engine's in its lossless
+    mode; "mulaw8" is taken (``tests/test_torch_folded.py`` holds it to JAX's)
+    and an unknown codec is rejected."""
     _, peng = _vie_tiny()
+    assert peng.transfer_codec is None
     jax_int16 = JaxEngine.from_checkpoint(VIE_TINY, transfer_codec="int16")
     text = "xin chào việt nam hôm nay trời đẹp"
     got = peng.synthesize(text)
     d = _lsb(got, jax_int16.synthesize(text))
     assert d.mean() < 1.0, d.mean()
-    with pytest.raises(TypeError):
-        SynthesisEngine.from_checkpoint(VIE_TINY, device="cpu", transfer_codec="mulaw8")
+    with pytest.raises(ValueError):
+        SynthesisEngine.from_checkpoint(VIE_TINY, device="cpu", transfer_codec="alaw8")

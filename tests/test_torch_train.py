@@ -373,15 +373,15 @@ def test_same_seed_gives_identical_steps():
 
 
 def test_unported_training_options_raise():
-    """``mixed_precision`` is not ported (A14) and raises; ``remat_blocks``
-    is ported: a model built with it takes a train step with dropout on
+    """Both options are ported now.  ``mixed_precision`` builds a train step
+    (the model's compute dtype carries it: ``tests/test_torch_mixed_precision.py``);
+    ``remat_blocks``: a model built with it takes a train step with dropout on
     whose metrics and updated weights equal the model's without it."""
     _, variables, _ = _models()
     port, cfg = _port(variables)
     opt = acoustic_optimizer(cfg.train.fastspeech2_optimizer, 32)
-    with pytest.raises(NotImplementedError, match="A14"):
-        make_train_step(port, cfg.replace(train=cfg.train.replace(mixed_precision=True)), opt,
-                        N_WORDS)
+    assert callable(make_train_step(
+        port, cfg.replace(train=cfg.train.replace(mixed_precision=True)), opt, N_WORDS))
     cfg = _small(default_config(), rate=0.3)
     remat = cfg.replace(models=cfg.models.replace(
         fastspeech2=cfg.models.fastspeech2.replace(remat_blocks=True)))

@@ -179,17 +179,39 @@ Phases, in order; any failure raises and the exit code is non-zero:
    copy ms and bytes, request seconds), ``use_flash=False`` against the
    default (request seconds; flash launches 0 and > 0), the flash kernels
    held to their plain version on the requests' inputs;
-23. a JSON line of every kernel (the flash kernel's float32 form and its two
+23. data parallelism (``data_parallel``): ``torch.cuda.device_count()``; an
+   engine with ``serving_devices=1`` gives the longest request bit-equal to
+   the default engine, and ``serving_devices=2`` raises ``ValueError`` on
+   one card; then two ranks share the card, processes of their own started
+   by this phase (``--dp-rank``; gloo, printed, since NCCL takes a card a
+   rank, so NCCL is not exercised here): a ``global_mesh`` engine on the
+   longest request (the ranks' int16 equal, within LSB_TOL mean of the
+   one-process engine; flash held to its plain version on each rank's
+   inputs), and one data-parallel step each of phase 12's acoustic step (B =
+   32 global at (128, 768), ragged lengths, the postnet's BatchNorm in train
+   mode), phase 13's vocoder GAN step and phase 14's e2e step (crop starts
+   handed in), dropout off, on each rank's rows, held to the single-process
+   step on the whole batch (metrics within TRAIN_LOSS_RTOL; every gradient,
+   from Adam's first moments, within TRAIN_GRAD_RTOL of the single-process
+   step's, and for the two GAN steps by phase 13's float64 oracle rule with
+   the same step in float64 on the card as the oracle and the
+   single-process step in the CPU's role); MAS's alignment held to the
+   single-process run's off ties; parameters bit-equal on the ranks;
+   MAS and the CTC kernels once a step, held to their plain versions on the
+   ranks' inputs), and each kind's ms a step beside the single-process
+   step's (two ranks on one card measure the code path, not scaling); a rank
+   that fails or outlasts DP_TIMEOUT_S fails the run;
+24. a JSON line of every kernel (the flash kernel's float32 form and its two
    16-bit kernels apart), then the JSON result as the last line.
 
 Each path that launches kernels (phases 5, 8, 9, 10, 11, 12, 14, 15, 16, 18,
-19, 20, 21 and 22) is driven with the launch counts set to 0 just before it and read
+19, 20, 21, 22 and 23) is driven with the launch counts set to 0 just before it and read
 just after, and each kernel is held against its plain version on the first
 inputs that path gave it (``recorded_inputs``, ``recorded_train_inputs``).  The kernels' JSON line
-counts the serving run's launches of flash attention (phases 5, 21 and 22's of
+counts the serving run's launches of flash attention (phases 5, 21, 22 and 23's of
 the float32 form, phase 16's batch-8 run's and phase 22's bfloat16 requests' of
-each 16-bit kernel) and phases 12, 14, 18, 19, 20 and 22's of the training
-kernels (19, 20 and 22: their train steps').  From phase 6 on, the random
+each 16-bit kernel) and phases 12, 14, 18, 19, 20, 22 and 23's of the training
+kernels (19, 20 and 22: their train steps'; 23: both ranks' data-parallel steps).  From phase 6 on, the random
 vocoders run with their last convolution scaled so that the waveform is at a
 speaking level (``make_audible``): the random weights alone give well under
 1 LSB.
@@ -1586,7 +1608,7 @@ ORACLE_FACTOR = 2.0  # the card may lie this many times as far from float64 as t
 # Gradients the card puts past the oracle bar, filed as C1 in ROADMAP.md with
 # their distances and left standing: logged as a standing failure each run,
 # never counted as a pass; any other tensor past the bar fails the run.
-ORACLE_FAULTS = {"e2e parity": frozenset({"trunk.resblocks.0.0.convs1.0.v"})}
+ORACLE_FAULTS: dict = {}  # none since the acoustic convolutions train outside cuDNN (C1)
 
 
 def to_dtype(batch, dtype):
@@ -3894,7 +3916,419 @@ def mixed_precision_and_options(smi: str, eng, work: str):
             {k: max(errs[k], cli_errs[k]) for k in errs}, flash, flash_errs)
 
 
+# --- 23. data parallelism ------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_TIMED = 3        # timed steps of each kind, single-process and data-parallel
+DP_TIMEOUT_S = 600  # a rank, or a collective, that takes longer fails the run
+DP_STEP = 30000     # the acoustic and e2e steps' count: hard expansion, the bin term on
+
+
+@contextlib.contextmanager
+def alignments(hard: list, rows=None):
+    """Record MAS's hard alignments in ``hard`` (``rows`` None), or hand on
+    ``rows`` of the recorded ones in order after running MAS (its kernel) on
+    the rank's own inputs: equal, or apart only where a decision on the path
+    was a tie (``mas_margin`` < MAS_TIE), so that the single-process step and
+    the data-parallel one differentiate one function."""
+    import e2e_tts_tpu_torch.nn.variance as variance
+
+    real, it = variance.monotonic_align, iter(list(hard))
+
+    def record(*a):
+        hard.append(real(*a))
+        return hard[-1]
+
+    def replay(attn, tl, ml):
+        own, want = real(attn, tl, ml), next(it)[rows].to(attn.device)
+        for b in sorted({int(i) for i in (own != want).nonzero()[:, 0]}):
+            margin = mas_margin(attn[b].detach().float().cpu().numpy(), int(tl[b]), int(ml[b]),
+                                own[b].argmax(-1).tolist())
+            if not margin < MAS_TIE:
+                raise AssertionError(f"data parallel: row {b}'s alignment differs off a MAS tie")
+        return want
+
+    variance.monotonic_align = record if rows is None else replay
+    try:
+        yield
+    finally:
+        variance.monotonic_align = real
+
+
+def dp_grads_parity(what: str, groups, oracle: bool) -> dict:
+    """The data-parallel step's gradients (Adam's first moments) against the
+    single-process step's on the global batch, by PERF.md's card bars: each
+    tensor within TRAIN_GRAD_RTOL of the single-process tensor (relative to
+    its norm), or for a GAN step (``oracle``) the float64 oracle's rule,
+    |dp - f64| <= max(TRAIN_GRAD_RTOL, ORACLE_FACTOR x |single - f64|), the
+    same step in float64 on the card in ``moments_parity``'s CPU float64
+    role.  A tensor 0 by construction below 1e-5 of its group's norm on
+    every side.  ``groups``: (names, dp, single, float64 or None, zero
+    pattern or None).  Logs the worst tensors; raises past the bar."""
+    rows, zero = [], 0
+    for names, dp, single, exact, pattern in groups:
+        ref = exact if oracle else single
+        scale = float(torch.sqrt(sum((m.double() ** 2).sum() for m in ref)))
+        for k, (name, a, b) in enumerate(zip(names, dp, single)):
+            a, b = a.double(), b.double()
+            e = exact[k].double() if oracle else b
+            if pattern is not None and pattern.search(name):
+                if not all(t.norm() < 1e-5 * scale for t in (a, b)):
+                    raise AssertionError(f"{what}: {name} should have a zero gradient")
+                zero += 1
+                continue
+            norm = e.norm().clamp(min=1e-300)
+            got, single_err = float((a - e).norm() / norm), float((b - e).norm() / norm)
+            bar = max(TRAIN_GRAD_RTOL, ORACLE_FACTOR * single_err) if oracle else TRAIN_GRAD_RTOL
+            rows.append((got / bar, got, single_err, name))
+    rows.sort(reverse=True)
+    worst = [dict(name=r[3], dp=float(f"{r[1]:.3g}"), single=float(f"{r[2]:.3g}"),
+                  of_bar=round(r[0], 3)) for r in rows[:5]]
+    log(f"{what}: gradients against the " + ("float64 step" if oracle else "single-process step")
+        + " " + json.dumps(dict(tensors=len(rows), zero_by_construction=zero, worst=worst)))
+    over = [r for r in rows if r[0] > 1.0]
+    if over:
+        raise AssertionError(f"{what}: {len(over)} gradient(s) past the bar: " + ", ".join(
+            f"{r[3]} {r[1]:.3g} (single-process {r[2]:.3g})" for r in over[:8]))
+    return dict(grad_rel_worst=max(r[1] for r in rows), grad_worst_of_bar=rows[0][0],
+                zero_by_construction=zero, oracle=oracle)
+
+
+@contextlib.contextmanager
+def ctc_on_the_host():
+    """The CTC forward and backward of ``ops.ctc`` through their plain
+    versions on the CPU (the kernels take float32; the float64 oracle does
+    not)."""
+    import e2e_tts_tpu_torch.ops.ctc as ops_ctc
+
+    real = ops_ctc.ctc_fwd, ops_ctc.ctc_bwd
+
+    def host(fn):
+        def call(*args):
+            dev, out = args[0].device, fn(*(a.cpu() for a in args))
+            return out.to(dev) if isinstance(out, torch.Tensor) else tuple(t.to(dev) for t in out)
+        return call
+
+    ops_ctc.ctc_fwd, ops_ctc.ctc_bwd = host(real[0]), host(real[1])
+    try:
+        yield
+    finally:
+        ops_ctc.ctc_fwd, ops_ctc.ctc_bwd = real
+
+
+def dp_same_on_ranks(modules) -> bool:
+    """Every parameter bit-equal to rank 0's (all of them in one broadcast
+    from it), on every rank."""
+    import torch.distributed as dist
+
+    mine = torch.cat([p.detach().reshape(-1) for m in modules for p in m.parameters()])
+    theirs = mine.clone()
+    dist.broadcast(theirs, 0)
+    same = torch.tensor(float(torch.equal(theirs, mine)))  # on the host: gloo's MIN
+    dist.all_reduce(same, op=dist.ReduceOp.MIN)
+    return bool(same.item())
+
+
+def dp_kind(kind: str, rank: int, build, make_step, batches, rows):
+    """One kind of step.  Rank 0 runs the single-process step on the global
+    batch (MAS's alignment recorded), times DP_TIMED more, and for a GAN
+    step runs it once more in float64 (the oracle, ``dp_grads_parity``) while
+    the other ranks wait; then every rank runs the
+    data-parallel step on its rows (launch counts from 0, the training
+    kernels' inputs recorded; MAS's alignment held to the single-process
+    run's), rank 0 holds it to the single-process step (metrics within
+    TRAIN_LOSS_RTOL, gradients by ``dp_grads_parity``), every rank holds its
+    metrics and parameters bit-equal to rank 0's, and all time DP_TIMED
+    data-parallel steps.  ``build()`` makes the modules; ``make_step(modules,
+    group)`` gives (step, state, moments of the state as (names, tensors,
+    pattern)); ``batches``: (global step arguments, this rank's, the global
+    batch's rows).  Returns the rank's result."""
+    import torch.distributed as dist
+
+    from e2e_tts_tpu_torch.parallel import make_data_mesh
+    from e2e_tts_tpu_torch.parallel.data_parallel import data_group
+    from e2e_tts_tpu_torch.parallel.distributed import barrier
+
+    hard, out, B = [], {}, batches[2]
+    mesh = make_data_mesh(B)
+    group = data_group(mesh)
+    train, oracle = kind != "vocoder", kind != "acoustic"
+    if rank == 0:
+        mods = build()
+        step, state, moments = make_step(mods, None)
+        with alignments(hard):
+            _, single = step(state, *batches[0])
+        single = {k: v.item() for k, v in single.items()}
+        single_mu = [(n, [t.clone() for t in mu], pattern) for n, mu, pattern in moments(state)]
+        sec, _ = timed_steps(lambda s, b: step(s, *b), state, batches[0], DP_TIMED)
+        out["single_step_ms"] = round(1e3 * sec, 3)
+        del mods, step, state
+        exact = [None] * len(single_mu)
+        if oracle:  # the same step in float64 on the card, on the recorded alignment
+            t0 = time.perf_counter()
+            mods = tuple(m.double() for m in build())
+            step, state, moments = make_step(mods, None)
+            with alignments(hard, slice(None)) if hard else contextlib.nullcontext(), \
+                    ctc_on_the_host():
+                step(state, *[to_dtype(a, torch.float64) for a in batches[0]])
+            exact = [[t.clone() for t in mu] for _, mu, _ in moments(state)]
+            out["float64_step_s"] = round(time.perf_counter() - t0, 2)
+            del mods, step, state
+        torch.cuda.empty_cache()
+    box = [hard[0].cpu() if hard else None]
+    dist.broadcast_object_list(box, src=0)
+    hard = [box[0]] if box[0] is not None else []
+    mods = build()
+    step, state, moments = make_step(mods, group)
+    with contextlib.ExitStack() as stack:
+        if train:
+            stack.enter_context(alignments(hard, rows))
+            seen = stack.enter_context(recorded_train_inputs())
+        _, dp = step(state, *batches[1])
+        out["launches"] = training_launches() if train else {}
+    out["errs"] = check_training_inputs(seen) if train else {}
+    dp = {k: v.item() for k, v in dp.items()}
+    box = [dp]
+    dist.broadcast_object_list(box, src=0)
+    if box[0] != dp:
+        raise AssertionError(f"data-parallel {kind}: rank {rank}'s metrics differ from rank 0's")
+    out["params_equal_on_ranks"] = dp_same_on_ranks(mods)
+    if not out["params_equal_on_ranks"]:
+        raise AssertionError(f"data-parallel {kind}: the ranks' parameters parted")
+    if rank == 0:
+        out["metric_rel_err"] = {}
+        for k, w in single.items():
+            out["metric_rel_err"][k] = float(f"{abs(dp[k] - w) / max(abs(w), 1e-12):.3g}")
+            if not abs(dp[k] - w) <= TRAIN_LOSS_RTOL * max(abs(w), 1e-12):
+                raise AssertionError(f"data-parallel {kind}: metric {k} {dp[k]}, the "
+                                     f"single-process step's {w}")
+        out.update(dp_grads_parity(f"data-parallel {kind}", [
+            (n, mu, single_mu[i][1], exact[i], p) for i, (n, mu, p) in enumerate(moments(state))],
+            oracle))
+    torch.cuda.synchronize()
+    barrier()
+    sec, metrics = timed_steps(lambda s, b: step(s, *b), state, batches[1], DP_TIMED)
+    out["dp_step_ms"] = round(1e3 * sec, 3)
+    check_finite(f"data-parallel {kind}", metrics)
+    del mods, step, state
+    torch.cuda.empty_cache()
+    log(f"[rank {rank}] data-parallel {kind} " + json.dumps(out))
+    return out
+
+
+def dp_rank(rank: int, world: int, port: int, work: str) -> int:
+    """One rank of phase 23 (a process of its own): ``global_mesh`` serving,
+    then one acoustic, vocoder and e2e step each, data-parallel, held to the
+    single-process step.  Writes its result to ``work/rank_<rank>.json``."""
+    from e2e_tts_tpu_torch.config import default_config
+    from e2e_tts_tpu_torch.kernels.build import library
+    import torch.distributed as dist
+
+    from e2e_tts_tpu_torch.parallel import initialize
+    from e2e_tts_tpu_torch.parallel.distributed import backend
+    from e2e_tts_tpu_torch.serve.engine import SynthesisEngine
+    from e2e_tts_tpu_torch.text.symbols import symbols
+    from e2e_tts_tpu_torch.train import (AcousticBatch, E2EBatch, VocoderBatch, acoustic_optimizer,
+                                         build_acoustic_model, gan_optimizer, init_train_state,
+                                         init_vocoder_train_state, make_train_step,
+                                         make_vocoder_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name in KERNELS:  # built by the parent process
+        library(name)
+    if not initialize(f"127.0.0.1:{port}", world, rank, timeout_s=DP_TIMEOUT_S):
+        raise AssertionError("torch.distributed did not start")
+    out = {"backend": backend(), "device": f"cuda:{torch.cuda.current_device()}"}
+    log(f"[rank {rank}] backend {out['backend']} on {out['device']}")
+
+    eng = SynthesisEngine.from_random(seed=0, global_mesh=True)
+    eng.vocoder.load_state_dict(torch.load(os.path.join(work, "vocoder.pt")))
+    with recorded_inputs() as seen:
+        audio = eng.synthesize(REQUESTS[-1])
+        out["flash"] = flash_counts()
+    out["flash_err"] = check_serving_inputs(seen, f"rank {rank} global_mesh")
+    out["n_devices"] = eng.n_devices
+    np.save(os.path.join(work, f"audio_{rank}.npy"), audio)
+    del eng
+    torch.cuda.empty_cache()
+
+    cfg = default_config()
+    n_words = max(cfg.models.fastspeech2.max_seq_len, 256)
+    n_symbols = len(symbols)
+    batch_np = train_batch(n_symbols)
+    mine = slice(rank * TRAIN_B // world, (rank + 1) * TRAIN_B // world)
+
+    def acoustic_step(mods, group):
+        model, = mods
+        opt = acoustic_optimizer(cfg.train.fastspeech2_optimizer,
+                                 cfg.models.fastspeech2.encoder_hidden)
+        state = init_train_state(model, opt, group=group)
+        state.step = DP_STEP
+        names = adam_names(model)
+        return (make_train_step(model, cfg, opt, n_words, group=group), state,
+                lambda s: [(names, s.opt_state.mu, ZERO_BY_CONSTRUCTION)])
+
+    batch = AcousticBatch.from_numpy(batch_np, "cuda")
+    out["acoustic"] = dp_kind(
+        "acoustic", rank,
+        lambda: (build_acoustic_model(cfg, n_symbols, TRAIN_SPEAKERS, dropout=False),),
+        acoustic_step, ((batch,), (AcousticBatch(*(t[mine] for t in batch)),), TRAIN_B), mine)
+
+    def vocoder_step(mods, group):
+        gen, mpd, msd = mods
+        g_opt, d_opt = (gan_optimizer(cfg.train.hifigan_optimizer) for _ in range(2))
+        state = init_vocoder_train_state(gen, g_opt, d_opt, mpd, msd)
+        names = (adam_names(gen), adam_names(mpd, msd))
+        return (make_vocoder_train_step(gen, cfg, g_opt, d_opt, "hifigan", mpd, msd, group=group),
+                state, lambda s: [(names[0], s.g_opt_state.mu, None),
+                                  (names[1], s.d_opt_state.mu, None)])
+
+    vb = VocoderBatch.from_numpy(vocoder_batch(), "cuda")
+    vrows = slice(rank * VOC_B // world, (rank + 1) * VOC_B // world)
+    out["vocoder"] = dp_kind("vocoder", rank, lambda: gan_modules(cfg), vocoder_step,
+                             ((vb,), (VocoderBatch(*(t[vrows] for t in vb)),), VOC_B), vrows)
+
+    def e2e_step(mods, group):
+        from e2e_tts_tpu_torch.train import init_e2e_state, make_e2e_train_step
+
+        model, gen, mpd, msd = mods
+        am_opt = acoustic_optimizer(cfg.train.fastspeech2_optimizer,
+                                    cfg.models.fastspeech2.encoder_hidden)
+        g_opt, d_opt = (gan_optimizer(cfg.train.hifigan_optimizer) for _ in range(2))
+        state = init_e2e_state(model, gen, am_opt, g_opt, d_opt, mpd, msd, group=group)
+        state.step = DP_STEP
+        names = (adam_names(model), adam_names(gen), adam_names(mpd, msd))
+        step = make_e2e_train_step(model, gen, cfg, am_opt, g_opt, d_opt, n_words, E2E_SEG,
+                                   mpd, msd, group=group)
+        return (step, state, lambda s: [(names[0], s.am_opt_state.mu, ZERO_BY_CONSTRUCTION),
+                                        (names[1], s.g_opt_state.mu, None),
+                                        (names[2], s.d_opt_state.mu, None)])
+
+    audio_np = e2e_audio(batch_np)
+    starts = torch.from_numpy(np.random.RandomState(1).randint(
+        0, np.maximum(batch_np[5] - E2E_SEG, 0) + 1)).cuda()
+    eb = E2EBatch.from_numpy(batch_np, audio_np, "cuda")
+    out["e2e"] = dp_kind(
+        "e2e", rank, lambda: e2e_modules(cfg, n_symbols, "cuda", dropout=False), e2e_step,
+        ((eb, starts), (E2EBatch(AcousticBatch(*(t[mine] for t in eb.acoustic)), eb.audio[mine]),
+                        starts[mine]), TRAIN_B), mine)
+    with open(os.path.join(work, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    log(f"[rank {rank}] " + json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def data_parallel(smi: str, eng):
+    """Phase 23: data parallelism.  On the one card: an engine with
+    ``serving_devices=1`` gives the longest request bit-equal to the default
+    engine (``eng``, from one bucket-estimator state), and
+    ``serving_devices=2`` raises.  Then two ranks share the card (processes
+    of their own, ``dp_rank``; gloo, since NCCL takes one rank a card): a
+    ``global_mesh`` engine (both ranks' int16 equal, within LSB_TOL mean of
+    ``eng``), and one acoustic, vocoder and e2e step each on their rows of
+    phase 12, 13 and 14's batches, held to the single-process step on the
+    whole batch (``dp_kind``).  A rank that fails, or that has not ended
+    within DP_TIMEOUT_S, fails the run.  Returns (flash launches, the flash
+    kernel's worst error on the phase's inputs, training launches, their
+    worst errors)."""
+    import socket
+
+    from e2e_tts_tpu_torch.serve.engine import FRAMES_PER_PHONEME_EST, SynthesisEngine
+
+    log(f"data parallel: {smi}; torch.cuda.device_count() = {torch.cuda.device_count()}")
+    log("data parallel: NCCL is not exercised on this machine: it has one card, and two ranks "
+        "on one card run over gloo")
+    text = REQUESTS[-1]
+    saved = estimator(eng)
+    fresh = (float(FRAMES_PER_PHONEME_EST), float(FRAMES_PER_PHONEME_EST), 0)
+    set_estimator(eng, fresh)
+    ref = eng.synthesize(text)
+    set_estimator(eng, saved)
+    one = SynthesisEngine.from_random(seed=0, serving_devices=1)
+    one.vocoder.load_state_dict(eng.vocoder.state_dict())
+    set_estimator(one, fresh)
+    with recorded_inputs() as seen:
+        got = one.synthesize(text)
+        flash = flash_counts()["flash_attention"]
+    if not np.array_equal(got, ref):
+        raise AssertionError("serving_devices=1: the request differs from the default engine's")
+    flash_err = check_serving_inputs(seen, "serving_devices=1")
+    log(f"data parallel: serving_devices=1, {len(text)} characters: bit-equal to the default "
+        f"engine ({flash} flash launches)")
+    del one
+    try:
+        SynthesisEngine.from_random(seed=0, serving_devices=2)
+    except ValueError as e:
+        log(f"data parallel: serving_devices=2 on {torch.cuda.device_count()} card(s) raises: {e}")
+    else:
+        raise AssertionError("serving_devices=2 on one card did not raise")
+    torch.cuda.empty_cache()
+
+    work = tempfile.mkdtemp(prefix="data_parallel_")
+    torch.save(eng.vocoder.state_dict(), os.path.join(work, "vocoder.pt"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    logs = [open(os.path.join(work, f"rank_{r}.log"), "w+") for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                               str(DP_WORLD), str(port), work], stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(DP_WORLD)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, DP_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise AssertionError(f"data parallel: a rank did not end within {DP_TIMEOUT_S} s")
+    finally:
+        for r, f in enumerate(logs):
+            f.seek(0)
+            for line in f.read().splitlines()[-60:]:
+                log(f"  rank {r}: {line}")
+            f.close()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        raise AssertionError(f"data parallel: rank(s) {failed} failed")
+    results = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(work, f"rank_{r}.json")) as f:
+            results.append(json.load(f))
+    audios = [np.load(os.path.join(work, f"audio_{r}.npy")) for r in range(DP_WORLD)]
+    if not all(np.array_equal(a, audios[0]) for a in audios):
+        raise AssertionError("global_mesh: the ranks returned other waveforms")
+    lsb_diff(f"global_mesh on {DP_WORLD} ranks ({results[0]['backend']}), {len(text)} characters, "
+             "vs the one-process engine", audios[0], ref)
+    flash += sum(r["flash"]["flash_attention"] for r in results)
+    flash_err = max([flash_err] + [r["flash_err"] for r in results])
+    launches = {k: 0 for k in ("mas", "ctc_fwd", "ctc_bwd")}
+    errs = dict(launches)
+    for r in results:
+        for kind in ("acoustic", "e2e"):
+            expect_launches(f"data-parallel {kind} step", r[kind]["launches"],
+                            {"mas": 1, "ctc_fwd": 1, "ctc_bwd": 1})
+            for k in launches:
+                launches[k] += r[kind]["launches"][k]
+                errs[k] = max(errs[k], r[kind]["errs"][k])
+    summary = {kind: dict(single_step_ms=results[0][kind]["single_step_ms"],
+                          dp_step_ms=[r[kind]["dp_step_ms"] for r in results],
+                          metric_rel_err_worst=max(results[0][kind]["metric_rel_err"].values()),
+                          **{k: results[0][kind].get(k) for k in (
+                              "grad_rel_worst", "grad_worst_of_bar", "oracle", "float64_step_s")})
+               for kind in ("acoustic", "vocoder", "e2e")}
+    log("data parallel " + json.dumps(dict(
+        card=smi, ranks=DP_WORLD, backend=results[0]["backend"],
+        devices=[r["device"] for r in results], seconds=round(time.perf_counter() - t0, 1),
+        note="two ranks on one card measure the code path, not scaling", **summary)))
+    return flash, flash_err, launches, errs
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--dp-rank"]:  # one rank of phase 23, started by the phase
+        return dp_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
     smi = environment()
     build()
     attn = check_attention()
@@ -3950,6 +4384,10 @@ def main() -> int:
             smi, eng, work)
         path_errs.append(options_errs["float32"])
         log(f"mixed precision and serving options phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dp_flash, dp_flash_err, dp_launches, dp_errs = data_parallel(smi, eng)
+        path_errs.append(dp_flash_err)
+        log(f"data parallelism phase: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
@@ -3957,7 +4395,7 @@ def main() -> int:
     for name, dtypes, prefix, src, n, errs in (
             ("flash_attention", ("float32",), "kernel", source,
              launches["flash_attention"] + router_launches
-             + options_flash["float32"]["flash_attention"], path_errs),
+             + options_flash["float32"]["flash_attention"] + dp_flash, path_errs),
             # the 16-bit kernels: timed in bfloat16, the serving dtype, forced
             # in turns; the error in the dtype's values (within one ulp of the
             # plain version, phase 3); launches in phase 16's batch-8 run,
@@ -3989,7 +4427,7 @@ def main() -> int:
             # F.ctc_loss forward and backward: no PyTorch call runs the backward alone
             ("ctc_bwd", "e2e_tts_tpu/ops/ctc.py:30", train_row["ctc_library_ms"])):
         errs = [train_errs[name], e2e_errs[name], corpus_errs[name], cli_errs[name],
-                family_errs[name], mp_errs[name]] + [
+                family_errs[name], mp_errs[name], dp_errs[name]] + [
             r[{"mas": "mas_err", "ctc_fwd": "ctc_loss_err", "ctc_bwd": "ctc_grad_err"}[name]]
             for r in train_kernels]
         kernels.append(dict(
@@ -3997,7 +4435,8 @@ def main() -> int:
             source=f"e2e_tts_tpu_torch/kernels/csrc/{'mas' if name == 'mas' else 'ctc'}.cu",
             replaces=replaces,
             launches=(train_launches[name] + e2e_launches[name] + corpus_launches[name]
-                      + cli_launches[name] + family_launches[name] + mp_launches[name]),
+                      + cli_launches[name] + family_launches[name] + mp_launches[name]
+                      + dp_launches[name]),
             max_abs_err=max(errs),
             ms=train_row[f"{name}_ms"], plain_ms=train_row[f"{name}_plain_ms"],
             bound_ms=train_row[f"{name}_bound_ms"], bound_by=train_row[f"{name}_bound_by"],

@@ -2,7 +2,7 @@
 (``trunk.resblocks.0.0.convs1.0.v``, ``chip_smoke.ORACLE_FAULTS``) under
 each cuDNN setting, on one NVIDIA GPU.
 
-    python3 cudnn_oracle_probe.py
+    python3 cudnn_oracle_probe.py [--out FILE]
 
 Builds the port's kernels (MAS and CTC run in the step), then, on
 ``chip_smoke`` phase 14's batch and modules:
@@ -20,14 +20,22 @@ Builds the port's kernels (MAS and CTC run in the step), then, on
    warm-up, settings in turns.
 
 The settings: ``default`` (cuDNN's benchmark and deterministic off, as
-PyTorch starts), ``deterministic``, ``benchmark``, and ``port_wgrad``: the
+PyTorch starts), ``deterministic``, ``benchmark``, ``port_wgrad``: the
 default with the training-form convolutions' weight gradient taken out of
 cuDNN's wgrad kernel (``_Conv1dWeightGrad``: each utterance's unfolded
-product through cuBLAS, the batch's partials summed in float64); TF32 off
-throughout.  Step 3 runs the settings in turns (default, deterministic,
-benchmark, port_wgrad, default), and phase 13's vocoder step (B = 16 x 8192
-samples) is timed under default and port_wgrad in turns.  One JSON line per
-setting.  Without CUDA it exits non-zero.
+product through cuBLAS, the batch's partials summed in float64), and
+``acoustic_unfold``: the default with the acoustic model's float32
+``Conv1d``s under autograd (the FFN's k = 9, the postnet's k = 5, the
+predictors' and the aligner's k = 3 and 1) run as an unfold and one float32
+``torch.matmul`` (``nn/common.conv1d_unfold``), so that their forward and
+both gradients are cuBLAS products; TF32 off throughout.  The package trains
+so (``Conv1d.UNFOLD_TRAINING``); the other settings turn it off, so that
+``default`` is cuDNN's forward as before.  Step 3 runs the
+settings in turns (default, deterministic, benchmark, port_wgrad,
+acoustic_unfold, default, acoustic_unfold), and phase 13's vocoder step
+(B = 16 x 8192 samples) is timed under default and port_wgrad in turns.  One JSON line per
+setting, also appended to ``--out`` where given (the kernel lists make the
+lines long).  Without CUDA it exits non-zero.
 """
 
 from __future__ import annotations
@@ -48,7 +56,8 @@ TENSOR = "trunk.resblocks.0.0.convs1.0.v"
 SETTINGS = {"default": dict(benchmark=False, deterministic=False),
             "deterministic": dict(benchmark=False, deterministic=True),
             "benchmark": dict(benchmark=True, deterministic=False),
-            "port_wgrad": dict(benchmark=False, deterministic=False)}
+            "port_wgrad": dict(benchmark=False, deterministic=False),
+            "acoustic_unfold": dict(benchmark=False, deterministic=False)}
 
 
 class _Conv1dWeightGrad(torch.autograd.Function):
@@ -90,10 +99,12 @@ class _Conv1dWeightGrad(torch.autograd.Function):
 @contextlib.contextmanager
 def cudnn(setting: str):
     """cuDNN's flags of ``setting``; under ``port_wgrad`` every float32
-    ``WNConv1d`` under autograd goes through ``_Conv1dWeightGrad``."""
-    from e2e_tts_tpu_torch.nn.common import WNConv1d
+    ``WNConv1d`` under autograd goes through ``_Conv1dWeightGrad``; only
+    ``acoustic_unfold`` keeps ``Conv1d.UNFOLD_TRAINING`` on."""
+    from e2e_tts_tpu_torch.nn.common import Conv1d, WNConv1d
 
     real = WNConv1d.conv_ncw
+    unfold = Conv1d.UNFOLD_TRAINING
 
     def conv_ncw(self, x):
         if x.dtype != torch.float32 or not torch.is_grad_enabled():
@@ -106,11 +117,16 @@ def cudnn(setting: str):
 
     if setting == "port_wgrad":
         WNConv1d.conv_ncw = conv_ncw
+    Conv1d.UNFOLD_TRAINING = setting == "acoustic_unfold"
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False, **SETTINGS[setting]):
             yield
     finally:
         WNConv1d.conv_ncw = real
+        Conv1d.UNFOLD_TRAINING = unfold
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def _same_pads(conv, x):
@@ -169,11 +185,16 @@ def alignment(hard: list, record: bool):
         variance.monotonic_align = real
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     from e2e_tts_tpu_torch.config import default_config
     from e2e_tts_tpu_torch.text.symbols import symbols
     from e2e_tts_tpu_torch.train import E2EBatch
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", help="also append the JSON lines to this file")
+    args = ap.parse_args(argv)
     smi = cs.environment()
     cs.build()
     cfg = default_config()
@@ -209,7 +230,8 @@ def main() -> int:
     timed = {}
     state, step = cs.e2e_step_fn(cfg, cs.e2e_modules(cfg, len(symbols)), n_words)
     batch = E2EBatch.from_numpy(batch_np, audio, "cuda")
-    for setting in ("default", "deterministic", "benchmark", "port_wgrad", "default"):
+    for setting in ("default", "deterministic", "benchmark", "port_wgrad", "acoustic_unfold",
+                    "default", "acoustic_unfold"):
         with cudnn(setting):
             step(state, batch)  # warm-up
             sec, _ = cs.timed_steps(step, state, batch, cs.TRAIN_STEPS)
@@ -224,7 +246,7 @@ def main() -> int:
                                getattr(exact, attr), names[attr], pattern))
         card, cpu_d, ratio = d.pop(TENSOR)
         worst = max(d.items(), key=lambda kv: kv[1][2])
-        print(json.dumps(dict(
+        line = json.dumps(dict(
             setting=setting, card=smi, cudnn=SETTINGS[setting],
             kernels=conv_kernels(cpu[1], cs.PARITY_ROWS, setting),
             tensor=TENSOR, card_vs_f64=float(f"{card:.4g}"), cpu_vs_f64=float(f"{cpu_d:.4g}"),
@@ -232,7 +254,11 @@ def main() -> int:
             of_bar=round(ratio, 4), other_over_bar=sum(v[2] > 1.0 for v in d.values()),
             worst_other=dict(name=worst[0], of_bar=round(worst[1][2], 4)),
             e2e_step_ms_b32=timed[setting], vocoder_step_ms_b16=vocoder_ms.get(setting),
-            cpu_runs_s=round(cpu_s, 2))), flush=True)
+            cpu_runs_s=round(cpu_s, 2)))
+        print(line, flush=True)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(line + "\n")
     return 0
 
 

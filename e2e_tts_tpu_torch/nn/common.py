@@ -246,7 +246,16 @@ class Conv1d(nn.Module):
     """1-D convolution with the JAX package's padding: "SAME" (the default)
     is asymmetric for even effective kernels, (total // 2, total - total // 2)
     with total = (kernel_size - 1) * dilation; "CAUSAL" pads all of total on
-    the left, so an output sees no later input.  Weight (out, in, k)."""
+    the left, so an output sees no later input.  Weight (out, in, k).
+
+    In float32 on CUDA under autograd (training; serving runs without
+    autograd) an ungrouped convolution is an unfold and one float32 product
+    (``conv1d_unfold``), whose forward and gradients are cuBLAS products
+    in float32: cuDNN's float32 convolutions at k = 9 lie 4.62x the CPU's
+    distance from float64, which put one e2e gradient past the float64
+    oracle's bar (ROADMAP C1).  ``UNFOLD_TRAINING = False`` gives cuDNN's."""
+
+    UNFOLD_TRAINING = True
 
     def __init__(self, d_in: int, d_out: int, kernel_size: int, dilation: int = 1,
                  bias: bool = True, *, generator: torch.Generator, device=None,
@@ -268,6 +277,9 @@ class Conv1d(nn.Module):
         """(B, C_in, T) -> (B, C_out, T)."""
         dt, groups = self.dtype, self.groups
         if dt is None:
+            if (self.UNFOLD_TRAINING and x.is_cuda and x.dtype == torch.float32 and groups == 1
+                    and torch.is_grad_enabled()):
+                return conv1d_unfold(F.pad(x, self.pad), self.weight, self.bias, self.dilation)
             return F.conv1d(F.pad(x, self.pad), self.weight, self.bias, dilation=self.dilation,
                             groups=groups)
         y = F.conv1d(F.pad(x.to(dt), self.pad), cast_param(self, "weight"),
@@ -277,6 +289,18 @@ class Conv1d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, C_in) -> (B, T, C_out)."""
         return self.conv_ncw(x.transpose(1, 2)).transpose(1, 2)
+
+
+def conv1d_unfold(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                  dilation: int = 1) -> torch.Tensor:
+    """An unpadded ungrouped ``F.conv1d`` of (B, C_in, T) as an unfold and one
+    ``torch.matmul`` (autograd differentiates both; full float32 products
+    while ``torch.backends.cuda.matmul.allow_tf32`` is off, PyTorch's
+    default)."""
+    c_out, c_in, k = weight.shape
+    cols = F.unfold(x.unsqueeze(2), (1, k), dilation=(1, dilation))  # (B, C_in * k, T_out)
+    y = torch.matmul(weight.reshape(c_out, c_in * k), cols)
+    return y if bias is None else y + bias[:, None]
 
 
 class DepthwiseConv1d(Conv1d):
@@ -490,13 +514,20 @@ class BatchNorm(nn.Module):
     never touches the statistics whatever the module's mode.  ``channels_last``
     takes (B, T, C), as flax's default layout, normalising over every axis
     but the features (padded frames included).  While ``remat`` recomputes
-    a layer the running statistics stay as the forward pass left them."""
+    a layer the running statistics stay as the forward pass left them.
+
+    ``group`` (a process group, ``parallel/data_parallel.set_batchnorm_group``)
+    makes the batch statistics those of the rows of every rank in it, as
+    JAX's BatchNorm normalises over the global batch of a sharded step: the
+    sums, sums of squares and counts are reduced over the group by a
+    differentiable ``all_reduce``."""
 
     MOMENTUM = 0.99
 
     def __init__(self, d: int, eps: float = 1e-5, device=None):
         super().__init__()
         self.eps = eps
+        self.group = None
         self.weight = nn.Parameter(torch.ones(d, device=device))
         self.bias = nn.Parameter(torch.zeros(d, device=device))
         self.register_buffer("running_mean", torch.zeros(d, device=device))
@@ -506,8 +537,7 @@ class BatchNorm(nn.Module):
                 channels_last: bool = False) -> torch.Tensor:
         dims, view = ((0, 1), (1, 1, -1)) if channels_last else ((0, 2), (1, -1, 1))
         if train:
-            mean = x.mean(dim=dims)
-            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            mean, var = self._batch_stats(x, dims)
             if not recomputing():
                 with torch.no_grad():
                     m = self.MOMENTUM
@@ -517,3 +547,18 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean.view(view)) * mul.view(view) + self.bias.view(view)
+
+    def _batch_stats(self, x: torch.Tensor, dims):
+        """The mean and biased variance over ``dims`` (and over the group's
+        rows)."""
+        if self.group is None:
+            mean = x.mean(dim=dims)
+            return mean, torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+        from torch.distributed.nn.functional import all_reduce
+
+        d = x.shape[1] if dims == (0, 2) else x.shape[2]  # the channels
+        count = x.new_full((1,), x.numel() // d)
+        stats = all_reduce(torch.cat([x.sum(dim=dims), (x * x).sum(dim=dims), count]),
+                           group=self.group)
+        mean, sq = stats[:d] / stats[-1], stats[d:2 * d] / stats[-1]
+        return mean, torch.clamp(sq - mean * mean, min=0.0)

@@ -1,5 +1,6 @@
 """Acoustic-model train and eval steps (port of
-``e2e_tts_tpu/train/acoustic_step.py``), eager PyTorch on one device.
+``e2e_tts_tpu/train/acoustic_step.py``), eager PyTorch on one device, or
+data-parallel over a process group.
 
 ``build_acoustic_model(config, n_symbols, n_speakers)`` makes the model as
 the JAX package trains it, on CUDA unless the caller passes a device;
@@ -16,6 +17,16 @@ The state holds what JAX threads through its step: the step count, the model
 (parameters and BatchNorm statistics, updated in place), the optimizer state
 and the dropout generator (a ``torch.Generator`` on the model's device, in
 place of JAX's rng key).  Metrics are device scalars (no host sync).
+
+Data parallelism: ``make_train_step(..., group=)`` takes the data group
+(``parallel/data_parallel.data_group``; None is one process, and the step is
+then today's exactly).  Each rank passes its rows of the global batch
+(``parallel/sharding.shard_batch``); its losses are its shares of the global
+batch's, the gradients are summed over the group before clipping and Adam,
+the model's BatchNorms take the global batch's statistics, and the metrics
+are the global ones, so every rank holds the parameters of JAX's sharded
+step.  ``init_train_state(..., group=)`` seeds each rank's dropout
+generator with the seed plus its rank.
 
 Mixed precision is the model's compute dtype, as in JAX: a model built in
 ``torch.bfloat16`` (``build_acoustic_model(..., dtype=)``) casts its float32
@@ -34,6 +45,8 @@ import torch
 from ..models.acoustic import FastSpeech2
 from ..models.acoustic_loss import fastspeech2_loss
 from ..nn.variance import FeatureStats
+from ..parallel.data_parallel import (rank_seed, reduce_gradients, reduce_metrics,
+                                      set_batchnorm_group)
 from .optim import AdamState, ScheduledAdam
 
 
@@ -101,10 +114,12 @@ class AcousticTrainState:
     rng: torch.Generator
 
 
-def init_train_state(model: FastSpeech2, optimizer: ScheduledAdam, seed: int = 0) -> AcousticTrainState:
-    """Step 0, fresh moments, and a dropout generator on the model's device."""
+def init_train_state(model: FastSpeech2, optimizer: ScheduledAdam, seed: int = 0,
+                     group=None) -> AcousticTrainState:
+    """Step 0, fresh moments, and a dropout generator on the model's device
+    (seeded with ``seed`` plus the rank in ``group``)."""
     device = next(model.parameters()).device
-    rng = torch.Generator(device=device).manual_seed(seed)
+    rng = torch.Generator(device=device).manual_seed(rank_seed(seed, group))
     return AcousticTrainState(0, model, optimizer.init(list(model.parameters())), rng)
 
 
@@ -123,7 +138,8 @@ def forward_inputs(config, batch: AcousticBatch) -> dict:
     return kw
 
 
-def _losses(model, config, batch: AcousticBatch, step: int, n_words: int, rng=None):
+def _losses(model, config, batch: AcousticBatch, step: int, n_words: int, rng=None,
+            group=None):
     v = config.models.fastspeech2.variance
     learn_alignment = v.duration_modelling.learn_alignment
     out = model(batch.speakers, batch.texts, batch.txt_lens, batch.mel, batch.mel_lens,
@@ -131,15 +147,21 @@ def _losses(model, config, batch: AcousticBatch, step: int, n_words: int, rng=No
     return fastspeech2_loss(out, batch.mel, batch.txt_lens, batch.mel_lens, batch.word_ids,
                             n_words, step, config.train.fastspeech2_loss,
                             use_uv=v.variance_embedding.use_uv, learn_alignment=learn_alignment,
-                            duration_target=None if learn_alignment else batch.duration_target)
+                            duration_target=None if learn_alignment else batch.duration_target,
+                            group=group)
 
 
-def make_train_step(model: FastSpeech2, config, optimizer: ScheduledAdam, n_words: int):
+def make_train_step(model: FastSpeech2, config, optimizer: ScheduledAdam, n_words: int,
+                    group=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``; the state is
     updated in place and returned.  Metrics: every loss term, ``total`` and
-    ``grad_norm`` (before clipping)."""
+    ``grad_norm`` (before clipping).  ``group``: the data group (module
+    docstring); with ``grad_acc_step`` N each rank's rows hold its shard of
+    each of the N microbatches in turn (``shard_batch(..., grad_accum=N)``)."""
     grad_accum = max(int(config.train.grad_acc_step), 1)
     params = list(model.parameters())
+    if group is not None:
+        set_batchnorm_group(model, group)
 
     def train_step(state: AcousticTrainState, batch: AcousticBatch):
         model.train()
@@ -152,7 +174,7 @@ def make_train_step(model: FastSpeech2, config, optimizer: ScheduledAdam, n_word
         sums: Dict[str, torch.Tensor] = {}
         for i in range(grad_accum):
             mb = AcousticBatch(*(t[i * micro:(i + 1) * micro] for t in batch))
-            losses = _losses(model, config, mb, state.step, n_words, state.rng)
+            losses = _losses(model, config, mb, state.step, n_words, state.rng, group)
             losses["total"].backward()  # gradients add up in p.grad
             for k, v in losses.items():
                 v = v.detach()
@@ -161,6 +183,8 @@ def make_train_step(model: FastSpeech2, config, optimizer: ScheduledAdam, n_word
         if grad_accum > 1:
             grads = [g * (1.0 / grad_accum) for g in grads]
             sums = {k: v * (1.0 / grad_accum) for k, v in sums.items()}
+        grads = reduce_gradients(grads, group)
+        sums = reduce_metrics(sums, group)
         sums["grad_norm"] = optimizer.apply(params, grads, state.opt_state)
         for p in params:
             p.grad = None
@@ -170,16 +194,19 @@ def make_train_step(model: FastSpeech2, config, optimizer: ScheduledAdam, n_word
     return train_step
 
 
-def make_eval_step(model: FastSpeech2, config, n_words: int):
+def make_eval_step(model: FastSpeech2, config, n_words: int, group=None):
     """Returns ``eval_step(state, batch) -> metrics``: eval mode (no dropout,
-    BatchNorm on its running statistics), no gradient, no optimizer."""
+    BatchNorm on its running statistics), no gradient, no optimizer; with a
+    data ``group``, each rank passes its rows and gets the global batch's
+    losses."""
 
     @torch.no_grad()
     def eval_step(state: AcousticTrainState, batch: AcousticBatch):
         was_training = model.training
         model.eval()
         try:
-            return _losses(model, config, batch, state.step, n_words)
+            return reduce_metrics(_losses(model, config, batch, state.step, n_words,
+                                          group=group), group)
         finally:
             model.train(was_training)
 

@@ -6,9 +6,15 @@ A checkpoint is a numbered step directory ``<directory>/<step>/`` holding
 ``state.pt``, PyTorch's own format (``torch.save`` of plain containers of
 CPU tensors), so ``scan_checkpoint`` reads the port's directories and the
 JAX package's orbax directories alike; the port does not read orbax's
-files (bundles are the format the two packages share).  Restoring onto a
-device mesh (the JAX ``restore_sharded``) waits for the port of
-``parallel/``.
+files (bundles are the format the two packages share).
+
+Across processes (``parallel/distributed``), a manager given the data group
+saves as Orbax's multi-process save does for JAX: rank 0 alone writes, and
+waits for the file, then every rank of the group meets at a barrier, so
+that what one rank reads next the others read too.  Every rank restores
+into its own template, on its own device: the twin of JAX's
+``restore_sharded`` with the model axis at 1, where every placement is
+replicated.
 
 A state is any tree of: modules (their ``state_dict``: parameters and
 BatchNorm statistics), tensors, ``torch.Generator``s (their state),
@@ -72,10 +78,15 @@ def _restore(template, saved, path: str = ""):
             template.copy_(saved)
         return template
     if isinstance(template, torch.Generator):
-        template.set_state(saved[_GENERATOR])
+        if saved is not None:  # a generator that the saving run did not hold stays as it is
+            template.set_state(saved[_GENERATOR])
         return template
+    if template is None and isinstance(saved, dict) and _GENERATOR in saved:
+        return None  # a generator of the saving run that this run does not hold
     if dataclasses.is_dataclass(template) and not isinstance(template, type):
         for f in dataclasses.fields(template):
+            if f.name not in saved and f.default is None:
+                continue  # an optional field that the saving version did not have
             setattr(template, f.name,
                     _restore(getattr(template, f.name), saved[f.name], f"{path}.{f.name}"))
         return template
@@ -96,11 +107,13 @@ def _restore(template, saved, path: str = ""):
 
 class CheckpointManager:
     """Numbered checkpoints in ``directory``, the newest ``max_to_keep``
-    kept."""
+    kept.  ``group``: the process group that saves together (module
+    docstring; None and one process: this process writes alone)."""
 
-    def __init__(self, directory: str, max_to_keep: int = 5):
+    def __init__(self, directory: str, max_to_keep: int = 5, group=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.group = group
         os.makedirs(self.directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -125,7 +138,18 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any, wait: bool = False) -> None:
         """Copy ``state``'s tensors to the host now, write them in the
-        background (after any save still being written)."""
+        background (after any save still being written).  Across processes
+        rank 0 writes and waits, and the group meets at a barrier."""
+        from ..parallel.distributed import barrier, is_primary, process_count
+
+        if process_count() > 1:
+            if is_primary():
+                self._save(step, state, wait=True)
+            barrier(self.group)
+            return
+        self._save(step, state, wait)
+
+    def _save(self, step: int, state: Any, wait: bool) -> None:
         tree = _snapshot(state)
         self.wait()
         self._thread = threading.Thread(target=self._write, args=(int(step), tree), daemon=True)

@@ -1,5 +1,5 @@
 """Training command line of the port (port of ``e2e_tts_tpu/train/cli.py``):
-a corpus on disk to a served voice, on one card.
+a corpus on disk to a served voice, on one card or data-parallel on several.
 
     python -m e2e_tts_tpu_torch.train.cli prepare  --corpus DIR [...] --workdir OUT
     python -m e2e_tts_tpu_torch.train.cli acoustic --workdir OUT [--steps N] [--supervised]
@@ -10,11 +10,27 @@ a corpus on disk to a served voice, on one card.
 
 Every subcommand has the JAX CLI's flags and defaults, and ``--device``
 (default ``cuda``; without a card it raises, and ``--device cpu`` runs on
-the CPU): the JAX CLI picks its platform through ``JAX_PLATFORMS``.  It
-trains on one card: the JAX CLI's mesh, its sharding rules and
-``restore_sharded`` have no counterpart yet, nor its XLA compilation cache
-(the port compiles nothing through XLA; its kernels' build directory keeps
-what ``nvcc`` made).  Checkpoints are the port's (``train/checkpoint.py``):
+the CPU): the JAX CLI picks its platform through ``JAX_PLATFORMS``.  The
+JAX CLI's XLA compilation cache has no counterpart (the port compiles
+nothing through XLA; its kernels' build directory keeps what ``nvcc`` made).
+
+``acoustic``, ``vocoder`` and ``e2e`` train data-parallel where the world
+has more than one process, as JAX's train on every visible device:
+
+    torchrun --nproc-per-node N -m e2e_tts_tpu_torch.train.cli acoustic --workdir OUT
+
+Each process calls ``parallel.initialize()`` (torchrun's ``MASTER_ADDR``,
+``MASTER_PORT``, ``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK``, or JAX's
+``COORDINATOR_ADDRESS``, ``NUM_PROCESSES`` and ``PROCESS_ID``) and computes
+on ``cuda:LOCAL_RANK`` (or the CPU under ``--device cpu``), builds
+``make_data_mesh`` from the global batch (the vocoder's is
+``train.batch_size // 2``), makes every global batch from the same seed and
+keeps its rows (``parallel.shard_batch``), and runs the global step
+(``parallel/data_parallel``).  Validation losses are the group's; logs,
+checkpoints and bundles are written by rank 0 alone, and every rank
+restores the checkpoint onto its own device.  Ranks that the data axis
+leaves out (it shrinks to a divisor of the batch) wait at the end.  One
+process is the one-card run, unchanged.  Checkpoints are the port's (``train/checkpoint.py``):
 ``acoustic_ckpt`` holds the ``AcousticTrainState``, ``vocoder_<kind>_ckpt``
 the generator, MPD, MSD and the ``VocoderTrainState``, ``e2e_ckpt`` the
 acoustic model, the generator, the discriminators and the ``E2EState``.
@@ -56,6 +72,55 @@ def _device(args) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
     return device
+
+
+def _parallel(args, batch_size: int):
+    """(device, data mesh, data group) of this process: ``initialize()`` from
+    the environment, a mesh whose data axis divides ``batch_size``, its group.
+    One process has neither mesh nor group (None, None): its mesh would be
+    1 x 1."""
+    from ..parallel import initialize, make_data_mesh
+    from ..parallel.data_parallel import data_group
+    from ..parallel.distributed import device
+
+    if not initialize(device="cpu" if args.device == "cpu" else None):
+        return _device(args), None, None
+    mesh = make_data_mesh(batch_size)
+    return device(), mesh, data_group(mesh)
+
+
+def _outside(mesh, name: str) -> bool:
+    """A rank that the data axis leaves out waits at the end, as JAX leaves
+    its device idle."""
+    from ..parallel.distributed import barrier, process_index
+
+    if mesh is None or mesh.get_coordinate() is not None:
+        return False
+    print(f"[{name}] rank {process_index()} is outside the data axis "
+          f"{tuple(mesh.shape)}: waiting", flush=True)
+    barrier()
+    return True
+
+
+def _say(*a) -> None:
+    """Print on rank 0 only."""
+    from ..parallel import is_primary
+
+    if is_primary():
+        print(*a, flush=True)
+
+
+class _NoLog:
+    """The loggers' calls on ranks other than 0: nothing is written."""
+
+    def __getattr__(self, name):
+        return lambda *a, **k: None
+
+
+def _logger(cls, logdir: str):
+    from ..parallel import is_primary
+
+    return cls(logdir) if is_primary() else _NoLog()
 
 
 def _config(args):
@@ -156,8 +221,14 @@ def cmd_acoustic(args, on_step: Optional[Callable] = None):
     from .checkpoint import CheckpointManager, warm_start_params
     from .optim import acoustic_optimizer
 
+    from ..parallel import shard_batch
+    from ..parallel.distributed import barrier
+
     config = _config(args)
-    device = _device(args)
+    device, mesh, group = _parallel(args, config.train.batch_size)
+    if _outside(mesh, "acoustic"):
+        return None
+    grad_accum = max(int(config.train.grad_acc_step), 1)
     entries, stats, speakers = _load_workdir(args.workdir)
     train_entries, valid_entries = split_train_valid(entries, seed=config.train.seed)
     dataset = _acoustic_dataset(config, args, train_entries, speakers, stats)
@@ -169,35 +240,39 @@ def cmd_acoustic(args, on_step: Optional[Callable] = None):
     optimizer = acoustic_optimizer(config.train.fastspeech2_optimizer,
                                    config.models.fastspeech2.encoder_hidden)
     n_words = max(config.models.fastspeech2.max_seq_len, 256)
-    train_step = make_train_step(model, config, optimizer, n_words)
-    eval_step = make_eval_step(model, config, n_words)
-    state = init_train_state(model, optimizer, seed=config.train.seed)
+    train_step = make_train_step(model, config, optimizer, n_words, group=group)
+    eval_step = make_eval_step(model, config, n_words, group=group)
+    state = init_train_state(model, optimizer, seed=config.train.seed, group=group)
 
-    ckpt = CheckpointManager(os.path.join(args.workdir, "acoustic_ckpt"))
+    ckpt = CheckpointManager(os.path.join(args.workdir, "acoustic_ckpt"), group=group)
     if args.init_from and ckpt.latest_step() is None:
         warm_start_params(model, args.init_from)
-        print(f"[acoustic] warm-started from bundle {args.init_from}", flush=True)
+        _say(f"[acoustic] warm-started from bundle {args.init_from}")
     if ckpt.latest_step() is not None:
         ckpt.restore(state)
         print(f"[acoustic] resumed from step {state.step}", flush=True)
 
+    def rows(batches):
+        """This rank's rows of each global batch (all of them in one process)."""
+        return (shard_batch(b, mesh, grad_accum) for b in batches)
+
     def run_validation():
         """Eval losses averaged over the held-out split: dropout off, no
-        gradient, no optimizer."""
+        gradient, no optimizer; the group's losses."""
         totals, n = {}, 0
-        for vb in make_acoustic_batches(valid_dataset, config.train.batch_size, shuffle=False,
-                                        device=device):
+        for vb in rows(make_acoustic_batches(valid_dataset, config.train.batch_size,
+                                             shuffle=False, device=device)):
             for k, v in eval_step(state, vb).items():
                 totals[k] = totals.get(k, 0.0) + float(v)
             n += 1
         return {f"valid_{k}": v / max(n, 1) for k, v in totals.items()}
 
-    logger = AcousticLogger(os.path.join(args.workdir, "logs", "acoustic"))
+    logger = _logger(AcousticLogger, os.path.join(args.workdir, "logs", "acoustic"))
     step, epoch, t0 = state.step, 0, time.time()
     while step < args.steps:
-        for batch in prefetch_iterator(
+        for batch in prefetch_iterator(rows(
                 make_acoustic_batches(dataset, config.train.batch_size,
-                                      seed=config.train.seed + epoch, device=device), size=2):
+                                      seed=config.train.seed + epoch, device=device)), size=2):
             state, metrics = train_step(state, batch)
             step = state.step
             if on_step is not None:
@@ -205,22 +280,23 @@ def cmd_acoustic(args, on_step: Optional[Callable] = None):
             if step % config.train.log_step == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 logger.log(step, m, lr=optimizer.schedule(step))
-                print(f"[acoustic] step {step} total={m['total']:.4f} mel={m['mel']:.4f} "
-                      f"({time.time() - t0:.0f}s)", flush=True)
+                _say(f"[acoustic] step {step} total={m['total']:.4f} mel={m['mel']:.4f} "
+                     f"({time.time() - t0:.0f}s)")
             if step % args.ckpt_every == 0:
                 ckpt.save(step, state)
                 logger.log_params(step, model)
                 if valid_entries:
                     vm = run_validation()
                     logger.log(step, vm)
-                    print(f"[acoustic] step {step} valid_total="
-                          f"{vm.get('valid_total', float('nan')):.4f}", flush=True)
+                    _say(f"[acoustic] step {step} valid_total="
+                         f"{vm.get('valid_total', float('nan')):.4f}")
             if step >= args.steps:
                 break
         epoch += 1
     ckpt.save(step, state, wait=True)
     logger.close()
-    print(f"[acoustic] done at step {step}", flush=True)
+    _say(f"[acoustic] done at step {step}")
+    barrier()
     return step
 
 
@@ -241,36 +317,41 @@ def cmd_vocoder(args, on_step: Optional[Callable] = None):
     from .optim import gan_optimizer
     from .vocoder_step import init_vocoder_train_state, make_vocoder_train_step
 
+    from ..parallel import shard_batch
+    from ..parallel.distributed import barrier
+
     config = _config(args)
-    device = _device(args)
+    batch_size = config.train.batch_size // 2
+    device, mesh, group = _parallel(args, batch_size)
+    if _outside(mesh, "vocoder"):
+        return None
     entries, _, _ = _load_workdir(args.workdir)
     train_entries, _ = split_train_valid(entries, seed=config.train.seed)
     kind = "istft" if args.istft else "hifigan"
     gen, mpd, msd = _vocoder_modules(config, kind, device)
     g_opt = gan_optimizer(config.train.hifigan_optimizer)
     d_opt = gan_optimizer(config.train.hifigan_optimizer)
-    step_fn = make_vocoder_train_step(gen, config, g_opt, d_opt, kind, mpd, msd)
+    step_fn = make_vocoder_train_step(gen, config, g_opt, d_opt, kind, mpd, msd, group=group)
     state = init_vocoder_train_state(gen, g_opt, d_opt, mpd, msd)
     tree = {"state": state, "generator": gen, "mpd": mpd, "msd": msd}
 
-    ckpt = CheckpointManager(os.path.join(args.workdir, f"vocoder_{kind}_ckpt"))
+    ckpt = CheckpointManager(os.path.join(args.workdir, f"vocoder_{kind}_ckpt"), group=group)
     if args.init_from and ckpt.latest_step() is None:
         _load_bundle_vocoder(gen, args.init_from)
-        print(f"[vocoder] warm-started generator from {args.init_from}", flush=True)
+        _say(f"[vocoder] warm-started generator from {args.init_from}")
     if ckpt.latest_step() is not None:
         ckpt.restore(tree)
         print(f"[vocoder] resumed from step {state.step}", flush=True)
 
-    batch_size = config.train.batch_size // 2
     dataset = VocoderDataset(train_entries, config,
                              segment_size=config.audio.signal.segment_length // 4,
                              mel_dir="predicted_mels" if args.predicted_mels else "mels")
-    writer = ScalarWriter(os.path.join(args.workdir, "logs", f"vocoder_{kind}"))
+    writer = _logger(ScalarWriter, os.path.join(args.workdir, "logs", f"vocoder_{kind}"))
     step, epoch, t0 = state.step, 0, time.time()
     while step < args.steps:
         step_at_epoch_start = step
-        for batch in prefetch_iterator(make_vocoder_batches(dataset, batch_size, seed=epoch,
-                                                            device=device), size=2):
+        batches = make_vocoder_batches(dataset, batch_size, seed=epoch, device=device)
+        for batch in prefetch_iterator((shard_batch(b, mesh) for b in batches), size=2):
             state, metrics = step_fn(state, batch)
             step = state.step
             if on_step is not None:
@@ -278,8 +359,8 @@ def cmd_vocoder(args, on_step: Optional[Callable] = None):
             if step % config.train.log_step == 0:
                 for k, v in metrics.items():
                     writer.scalar(f"vocoder/{k}", float(v), step)
-                print(f"[vocoder] step {step} g={float(metrics['g_total']):.3f} "
-                      f"d={float(metrics['d_total']):.3f} ({time.time() - t0:.0f}s)", flush=True)
+                _say(f"[vocoder] step {step} g={float(metrics['g_total']):.3f} "
+                     f"d={float(metrics['d_total']):.3f} ({time.time() - t0:.0f}s)")
             if step % args.ckpt_every == 0:
                 ckpt.save(step, tree)
             if step >= args.steps:
@@ -291,7 +372,8 @@ def cmd_vocoder(args, on_step: Optional[Callable] = None):
         epoch += 1
     ckpt.save(step, tree, wait=True)
     writer.close()
-    print(f"[vocoder] done at step {step}", flush=True)
+    _say(f"[vocoder] done at step {step}")
+    barrier()
     return step
 
 
@@ -305,8 +387,13 @@ def cmd_e2e(args, on_step: Optional[Callable] = None):
     from .e2e_step import E2EBatch, init_e2e_state, make_e2e_train_step
     from .optim import e2e_optimizers
 
+    from ..parallel import local_rows, shard_batch
+    from ..parallel.distributed import barrier
+
     config = _config(args)
-    device = _device(args)
+    device, mesh, group = _parallel(args, config.train.batch_size)
+    if _outside(mesh, "e2e"):
+        return None
     entries, stats, speakers = _load_workdir(args.workdir)
     train_entries, _ = split_train_valid(entries, seed=config.train.seed)
     dataset = _acoustic_dataset(config, args, train_entries, speakers, stats)
@@ -320,18 +407,19 @@ def cmd_e2e(args, on_step: Optional[Callable] = None):
                                           d_scale=args.d_lr_scale)
     n_words = max(config.models.fastspeech2.max_seq_len, 256)
     step_fn = make_e2e_train_step(model, gen, config, am_opt, g_opt, d_opt, n_words, mpd=mpd,
-                                  msd=msd, adv_warmup_steps=args.adv_warmup)
-    state = init_e2e_state(model, gen, am_opt, g_opt, d_opt, mpd, msd, seed=config.train.seed)
+                                  msd=msd, adv_warmup_steps=args.adv_warmup, group=group)
+    state = init_e2e_state(model, gen, am_opt, g_opt, d_opt, mpd, msd, seed=config.train.seed,
+                           group=group)
     tree = {"state": state, "acoustic": model, "generator": gen, "mpd": mpd, "msd": msd}
 
-    ckpt = CheckpointManager(os.path.join(args.workdir, "e2e_ckpt"))
+    ckpt = CheckpointManager(os.path.join(args.workdir, "e2e_ckpt"), group=group)
     if ckpt.latest_step() is not None:
         ckpt.restore(tree)
         print(f"[e2e] resumed from step {state.step}", flush=True)
     elif args.init_from:
         warm_start_params(model, args.init_from)
         _load_bundle_vocoder(gen, args.init_from)
-        print(f"[e2e] warm-started from bundle {args.init_from}", flush=True)
+        _say(f"[e2e] warm-started from bundle {args.init_from}")
     else:
         # a joint fine-tune continues the separately trained stages: take the
         # workdir's acoustic and vocoder checkpoints where there are any
@@ -339,11 +427,11 @@ def cmd_e2e(args, on_step: Optional[Callable] = None):
         ack = CheckpointManager(os.path.join(args.workdir, "acoustic_ckpt"))
         if ack.latest_step() is not None:
             seeded = ack.restore({"step": 0, "model": model})
-            print(f"[e2e] acoustic seeded from step {seeded['step']}", flush=True)
+            _say(f"[e2e] acoustic seeded from step {seeded['step']}")
         vck = CheckpointManager(os.path.join(args.workdir, "vocoder_hifigan_ckpt"))
         if vck.latest_step() is not None:
             seeded = vck.restore({"state": {"step": 0}, "generator": gen, "mpd": mpd, "msd": msd})
-            print(f"[e2e] vocoder seeded from step {seeded['state']['step']}", flush=True)
+            _say(f"[e2e] vocoder seeded from step {seeded['state']['step']}")
 
     hop = config.audio.stft.hop_length
     wav_by_path = {}  # bounded: cleared past _WAV_CACHE_MAX entries
@@ -363,9 +451,10 @@ def cmd_e2e(args, on_step: Optional[Callable] = None):
                     wav_by_path[p], _ = read_wav(p)
                 w = wav_by_path[p][: T * hop]
                 audio[row, : len(w)] = w
-            yield E2EBatch(batch, torch.from_numpy(audio).to(device))
+            mine = local_rows(len(audio), mesh)
+            yield E2EBatch(shard_batch(batch, mesh), torch.from_numpy(audio[mine]).to(device))
 
-    logger = E2ELogger(os.path.join(args.workdir, "logs", "e2e"))
+    logger = _logger(E2ELogger, os.path.join(args.workdir, "logs", "e2e"))
     step, epoch, t0 = state.step, 0, time.time()
     while step < args.steps:
         for eb in prefetch_iterator(host_batches(epoch)):
@@ -375,9 +464,8 @@ def cmd_e2e(args, on_step: Optional[Callable] = None):
                 on_step(step, metrics)
             if step % config.train.log_step == 0:
                 logger.log(step, {k: float(v) for k, v in metrics.items()})
-                print(f"[e2e] step {step} total={float(metrics['total']):.3f} "
-                      f"d={float(metrics['discriminator']):.3f} ({time.time() - t0:.0f}s)",
-                      flush=True)
+                _say(f"[e2e] step {step} total={float(metrics['total']):.3f} "
+                     f"d={float(metrics['discriminator']):.3f} ({time.time() - t0:.0f}s)")
             if step % args.ckpt_every == 0:
                 ckpt.save(step, tree)
             if step >= args.steps:
@@ -385,7 +473,8 @@ def cmd_e2e(args, on_step: Optional[Callable] = None):
         epoch += 1
     ckpt.save(step, tree, wait=True)
     logger.close()
-    print(f"[e2e] done at step {step}", flush=True)
+    _say(f"[e2e] done at step {step}")
+    barrier()
     return step
 
 

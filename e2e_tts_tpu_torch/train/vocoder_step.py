@@ -1,5 +1,6 @@
 """HiFi-GAN adversarial train step (port of
-``e2e_tts_tpu/train/vocoder_step.py``), eager PyTorch on one device.
+``e2e_tts_tpu/train/vocoder_step.py``), eager PyTorch on one device, or
+data-parallel over a process group.
 
 ``make_vocoder_train_step(generator, config, g_opt, d_opt, vocoder_kind)``
 returns ``train_step(state, batch) -> (state, metrics)``: the discriminators
@@ -15,6 +16,12 @@ loss=True)``, weighted by 45.
 
 The modules hold the parameters; the state holds the update count and the
 two optimizers' moments.  Metrics are device scalars (no host sync).
+
+``group`` (the data group, ``parallel/data_parallel``; None is one process)
+makes the step the global one over the ranks' rows: every loss is a mean
+over rows, so each rank's loss is its share (the mean over its rows over the
+group's size), the gradients of both updates are summed over the group
+before Adam, and the metrics are the global ones.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from ..audio.mel import MelParams, mel_spectrogram
 from ..models.vocoder import istft_to_audio
 from ..nn.discriminators import (build_discriminators, discriminator_loss, feature_loss,
                                  generator_adv_loss)
+from ..parallel.data_parallel import reduce_gradients, reduce_metrics, share
 from .optim import AdamState, ScheduledAdam
 
 MEL_LOSS_WEIGHT = 45.0  # HiFi-GAN's lambda_mel
@@ -87,20 +95,23 @@ def gan_discriminator_losses(mpd, msd, y, y_hat):
     return losses[0], losses[1]
 
 
-def _grads(loss, params):
-    """d loss / d params, zeros where a parameter does not reach the loss."""
+def _grads(loss, params, group=None):
+    """d loss / d params, zeros where a parameter does not reach the loss,
+    summed over ``group``."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    return reduce_gradients([torch.zeros_like(p) if g is None else g
+                             for p, g in zip(params, grads)], group)
 
 
 def make_vocoder_train_step(generator, config, g_optimizer: ScheduledAdam,
                             d_optimizer: ScheduledAdam, vocoder_kind: str = "hifigan",
-                            mpd=None, msd=None):
+                            mpd=None, msd=None, group=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``; the modules
     and the state are updated in place.  ``mpd`` / ``msd`` default to the
     reference widths on the generator's device (``build_discriminators``);
     the step keeps them as ``train_step.mpd`` and ``train_step.msd``.
-    Metrics: ``d_total, d_mpd, d_msd, g_total, g_adv, g_fm, g_mel``."""
+    Metrics: ``d_total, d_mpd, d_msd, g_total, g_adv, g_fm, g_mel``.
+    ``group``: the data group (module docstring)."""
     if vocoder_kind not in ("hifigan", "istft"):
         raise ValueError(f"unknown vocoder kind {vocoder_kind!r}")
     if mpd is None or msd is None:
@@ -121,19 +132,21 @@ def make_vocoder_train_step(generator, config, g_optimizer: ScheduledAdam,
         y, y_hat = batch.audio[..., :n], y_hat[..., :n]
 
         # the discriminators, against the current generator
-        d_mpd, d_msd = gan_discriminator_losses(mpd, msd, y, y_hat.detach())
+        d_mpd, d_msd = (share(v, group)
+                        for v in gan_discriminator_losses(mpd, msd, y, y_hat.detach()))
         d_total = d_mpd + d_msd
-        d_optimizer.apply(d_params, _grads(d_total, d_params), state.d_opt_state)
+        d_optimizer.apply(d_params, _grads(d_total, d_params, group), state.d_opt_state)
 
         # the generator, against the updated discriminators
-        g_adv, g_fm, g_mel = gan_generator_losses(mpd, msd, y, y_hat, mel_params)
+        g_adv, g_fm, g_mel = (share(v, group)
+                              for v in gan_generator_losses(mpd, msd, y, y_hat, mel_params))
         g_total = g_adv + g_fm + MEL_LOSS_WEIGHT * g_mel
-        g_optimizer.apply(g_params, _grads(g_total, g_params), state.g_opt_state)
+        g_optimizer.apply(g_params, _grads(g_total, g_params, group), state.g_opt_state)
 
         state.step += 1
         metrics = dict(d_total=d_total, d_mpd=d_mpd, d_msd=d_msd, g_total=g_total,
                        g_adv=g_adv, g_fm=g_fm, g_mel=g_mel)
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, reduce_metrics({k: v.detach() for k, v in metrics.items()}, group)
 
     train_step.mpd, train_step.msd = mpd, msd
     return train_step

@@ -153,3 +153,25 @@ def test_stages_match_jax(name, controls, monkeypatch):
     if min_T >= 256:  # the flash branch ran in the encoder and the decoder
         assert (texts.shape[0] * 2, texts.shape[1], 24) in calls
         assert (texts.shape[0] * 2, T, 24) in calls
+
+
+@pytest.mark.parametrize("k,dilation", [(9, 1), (5, 1), (3, 1), (1, 1), (3, 2)])
+def test_conv1d_unfold_is_the_convolution(k, dilation):
+    """``nn/common.conv1d_unfold`` (the float32 training form's convolution on
+    the card, ROADMAP C1) against ``F.conv1d``: the output and the gradients
+    of the input, the weight and the bias, in float64 to rounding."""
+    import torch.nn.functional as F
+
+    from e2e_tts_tpu_torch.nn.common import conv1d_unfold
+
+    g = torch.Generator().manual_seed(k * 10 + dilation)
+    x = torch.randn(3, 6, 40, generator=g, dtype=torch.float64, requires_grad=True)
+    w = torch.randn(5, 6, k, generator=g, dtype=torch.float64, requires_grad=True)
+    b = torch.randn(5, generator=g, dtype=torch.float64, requires_grad=True)
+    got, want = conv1d_unfold(x, w, b, dilation), F.conv1d(x, w, b, dilation=dilation)
+    assert got.shape == want.shape
+    assert torch.allclose(got, want, rtol=1e-12, atol=1e-12)
+    dy = torch.randn(want.shape, generator=g, dtype=torch.float64)
+    for a, c in zip(torch.autograd.grad(got, (x, w, b), dy),
+                    torch.autograd.grad(want, (x, w, b), dy)):
+        assert torch.allclose(a, c, rtol=1e-12, atol=1e-12)

@@ -255,12 +255,13 @@ def test_mel_content_features_matches_jax():
 
 def test_engine_options_the_port_does_not_take():
     _, peng = _engines()
-    # the serving mesh (ROADMAP A12) is not ported; the folded vocoder and the
-    # transfer codec are (tests/test_torch_folded.py)
-    with pytest.raises(TypeError):
-        SynthesisEngine.from_checkpoint(VIE_TINY, device="cpu", serving_devices=2)
-    with pytest.raises(TypeError):
-        SynthesisEngine.from_checkpoint(VIE_TINY, device="cpu", global_mesh=True)
+    # every option of the JAX engine is taken now: the serving mesh and the
+    # global mesh (tests/test_torch_parallel.py, test_torch_parallel_steps.py),
+    # the folded vocoder and the transfer codec (tests/test_torch_folded.py)
+    sharded = SynthesisEngine.from_checkpoint(VIE_TINY, device="cpu", serving_devices=2)
+    assert sharded.n_devices == 2 and sharded.batch_size % 2 == 0
+    one = SynthesisEngine.from_checkpoint(VIE_TINY, device="cpu", global_mesh=True)
+    assert one.n_devices == 1  # one process: the world is this engine
     assert SynthesisEngine.from_checkpoint(VIE_TINY, device="cpu",
                                            use_folded_vocoder=True).use_folded_vocoder
 

@@ -201,17 +201,30 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ranks' inputs), and each kind's ms a step beside the single-process
    step's (two ranks on one card measure the code path, not scaling); a rank
    that fails or outlasts DP_TIMEOUT_S fails the run;
-24. a JSON line of every kernel (the flash kernel's float32 form and its two
+24. tensor parallelism (``tensor_parallel``): two ranks share the card at
+   (data 1, model 2) (``--tp-rank``; gloo): the default-width acoustic
+   model's eval forward on the longest request's first batch, split by
+   ``parallelize``, against the unsplit forward (durations equal, mel within
+   MEL_TOL, the flash kernel on each rank's local heads, held to its plain
+   version on their inputs); then phase 23's three steps on the whole batch
+   with the wide weights split (``dp_kind`` with the model axis): metrics
+   within TP_LOSS_RTOL, gradients as phase 23 (the shards gathered), each
+   update within TRAIN_GRAD_RTOL over the entries whose gradients agree
+   within TP_ENTRY_RTOL, the replicated parameters bit-equal on the ranks,
+   MAS and the CTC kernels once a step a rank; each rank's step ms beside
+   the single-process step's, its parameter counts and peak memory beside
+   the single-process step's;
+25. a JSON line of every kernel (the flash kernel's float32 form and its two
    16-bit kernels apart), then the JSON result as the last line.
 
 Each path that launches kernels (phases 5, 8, 9, 10, 11, 12, 14, 15, 16, 18,
-19, 20, 21, 22 and 23) is driven with the launch counts set to 0 just before it and read
+19, 20, 21, 22, 23 and 24) is driven with the launch counts set to 0 just before it and read
 just after, and each kernel is held against its plain version on the first
 inputs that path gave it (``recorded_inputs``, ``recorded_train_inputs``).  The kernels' JSON line
-counts the serving run's launches of flash attention (phases 5, 21, 22 and 23's of
+counts the serving run's launches of flash attention (phases 5, 21, 22, 23 and 24's of
 the float32 form, phase 16's batch-8 run's and phase 22's bfloat16 requests' of
-each 16-bit kernel) and phases 12, 14, 18, 19, 20, 22 and 23's of the training
-kernels (19, 20 and 22: their train steps'; 23: both ranks' data-parallel steps).  From phase 6 on, the random
+each 16-bit kernel) and phases 12, 14, 18, 19, 20, 22, 23 and 24's of the training
+kernels (19, 20 and 22: their train steps'; 23 and 24: both ranks' parallel steps).  From phase 6 on, the random
 vocoders run with their last convolution scaled so that the waveform is at a
 speaking level (``make_audible``): the random weights alone give well under
 1 LSB.
@@ -3922,6 +3935,10 @@ DP_WORLD = 2
 DP_TIMED = 3        # timed steps of each kind, single-process and data-parallel
 DP_TIMEOUT_S = 600  # a rank, or a collective, that takes longer fails the run
 DP_STEP = 30000     # the acoustic and e2e steps' count: hard expansion, the bin term on
+TP_MODEL = 2        # phase 24's model axis: (data 1, model 2), the layout one card allows
+TP_LOSS_RTOL = 1e-5  # a tensor-parallel step's metrics against the single-process step's
+TP_NOISE = 1e-5     # an update entry whose first moment is below this share of its tensor's max
+TP_ENTRY_RTOL = 1e-3  # ... or whose first moments in the two steps are further apart, relative
 
 
 @contextlib.contextmanager
@@ -4017,11 +4034,13 @@ def ctc_on_the_host():
 
 
 def dp_same_on_ranks(modules) -> bool:
-    """Every parameter bit-equal to rank 0's (all of them in one broadcast
-    from it), on every rank."""
+    """Every parameter of ``modules`` (modules, or lists of parameters)
+    bit-equal to rank 0's (all of them in one broadcast from it), on every
+    rank."""
     import torch.distributed as dist
 
-    mine = torch.cat([p.detach().reshape(-1) for m in modules for p in m.parameters()])
+    mine = torch.cat([p.detach().reshape(-1) for m in modules
+                      for p in (m.parameters() if isinstance(m, torch.nn.Module) else m)])
     theirs = mine.clone()
     dist.broadcast(theirs, 0)
     same = torch.tensor(float(torch.equal(theirs, mine)))  # on the host: gloo's MIN
@@ -4029,7 +4048,69 @@ def dp_same_on_ranks(modules) -> bool:
     return bool(same.item())
 
 
-def dp_kind(kind: str, rank: int, build, make_step, batches, rows):
+def tp_full(params, tensors, mesh) -> list:
+    """Each of ``tensors`` (a parameter's shard, or a moment of it, in
+    ``params``' order) made whole on every rank: a split one gathered over
+    the model group on its split dim, the others as they are."""
+    from e2e_tts_tpu_torch.parallel.mesh import model_group
+    from e2e_tts_tpu_torch.parallel.tensor_parallel import SPLIT, gather_from_model, role
+
+    group = model_group(mesh)
+    with torch.no_grad():
+        return [gather_from_model(t.detach(), p.tp_dim, group) if role(p) == SPLIT
+                else t.detach() for p, t in zip(params, tensors)]
+
+
+def tp_update_parity(what: str, groups, before, single_after, tp_after) -> dict:
+    """The tensor-parallel step's update of each parameter (made whole)
+    against the single-process step's, within TRAIN_GRAD_RTOL relative norm,
+    over the entries whose gradient the two steps agree on: the
+    single-process step's first moment at least TP_NOISE x its tensor's
+    largest, and its distance from the tensor-parallel step's within
+    TP_ENTRY_RTOL of it.  Adam's first update is lr x g / (|g| + eps) of the
+    clipped gradient g: a sign where |g| >> eps, so that an entry whose
+    gradient is within the card's float noise of 0 flips it, and where |g|
+    is near eps (small entries after the clip) it moves with g's float
+    noise; ``dp_grads_parity`` holds the gradients themselves per tensor.  A tensor
+    0 by construction is skipped.  ``groups`` as ``dp_grads_parity``'s.
+    Logs the worst and the share of entries held; raises past the bar."""
+    rows, k, held, total = [], 0, 0, 0
+    for names, tp_mu, single_mu, _, pattern in groups:
+        for name, mu_t, mu_s in zip(names, tp_mu, single_mu):
+            b, a, t = before[k].double(), single_after[k].double(), tp_after[k].double()
+            k += 1
+            if pattern is not None and pattern.search(name):
+                continue
+            mu_s, mu_t = mu_s.double().cpu(), mu_t.double().cpu()
+            signal = ((mu_s.abs() >= TP_NOISE * mu_s.abs().max())
+                      & ((mu_t - mu_s).abs() <= TP_ENTRY_RTOL * mu_s.abs()))
+            held, total = held + int(signal.sum()), total + signal.numel()
+            want, got = (a - b)[signal], (t.cpu() - b)[signal]
+            rows.append((float((got - want).norm() / want.norm().clamp(min=1e-300)), name))
+    rows.sort(reverse=True)
+    log(f"{what}: updates against the single-process step " + json.dumps(dict(
+        tensors=len(rows), entries_held=held, entries=total,
+        worst=[dict(name=n, rel=float(f"{r:.3g}")) for r, n in rows[:5]])))
+    over = [r for r in rows if r[0] > TRAIN_GRAD_RTOL]
+    if over:
+        raise AssertionError(f"{what}: {len(over)} update(s) past the bar: " + ", ".join(
+            f"{n} {r:.3g}" for r, n in over[:8]))
+    return dict(update_rel_worst=rows[0][0], update_entries_held=round(held / total, 6))
+
+
+def param_counts(mods) -> dict:
+    """A rank's parameters: elements held, their bytes, and how many of them
+    are split shards or replicas."""
+    from e2e_tts_tpu_torch.parallel.tensor_parallel import SPLIT, role
+
+    ps = [p for m in mods for p in m.parameters()]
+    split = sum(p.numel() for p in ps if role(p) == SPLIT)
+    held = sum(p.numel() for p in ps)
+    return dict(held=held, bytes=sum(p.numel() * p.element_size() for p in ps),
+                split_shards=split, replicated=held - split)
+
+
+def dp_kind(kind: str, rank: int, build, make_step, batches, rows, model_parallel: int = 1):
     """One kind of step.  Rank 0 runs the single-process step on the global
     batch (MAS's alignment recorded), times DP_TIMED more, and for a GAN
     step runs it once more in float64 (the oracle, ``dp_grads_parity``) while
@@ -4040,26 +4121,47 @@ def dp_kind(kind: str, rank: int, build, make_step, batches, rows):
     TRAIN_LOSS_RTOL, gradients by ``dp_grads_parity``), every rank holds its
     metrics and parameters bit-equal to rank 0's, and all time DP_TIMED
     data-parallel steps.  ``build()`` makes the modules; ``make_step(modules,
-    group)`` gives (step, state, moments of the state as (names, tensors,
-    pattern)); ``batches``: (global step arguments, this rank's, the global
-    batch's rows).  Returns the rank's result."""
+    group, model_group)`` gives (step, state, moments of the state as
+    (names, tensors, pattern, parameters)); ``batches``: (global step
+    arguments, this rank's, the global batch's rows).
+
+    With ``model_parallel`` 2 (phase 24) the mesh is (data 1, model 2): every
+    rank takes the whole batch, its modules are split by ``parallelize``, and
+    the step is the tensor-parallel one.  Then the metrics are held within
+    TP_LOSS_RTOL, the shards are gathered on every rank (``tp_full``) before
+    rank 0 holds the gradients and the updates (``tp_update_parity``) to the
+    single-process step, only the replicated parameters must be bit-equal
+    on the ranks, and the rank's parameter counts and peak memory are kept.
+    Returns the rank's result."""
     import torch.distributed as dist
 
     from e2e_tts_tpu_torch.parallel import make_data_mesh
     from e2e_tts_tpu_torch.parallel.data_parallel import data_group
     from e2e_tts_tpu_torch.parallel.distributed import barrier
+    from e2e_tts_tpu_torch.parallel.mesh import model_group
+    from e2e_tts_tpu_torch.parallel.tensor_parallel import SPLIT, parallelize, role
 
     hard, out, B = [], {}, batches[2]
-    mesh = make_data_mesh(B)
-    group = data_group(mesh)
+    mesh = make_data_mesh(B, model_parallel)
+    group, tp = data_group(mesh), model_group(mesh)
     train, oracle = kind != "vocoder", kind != "acoustic"
+    what = f"{'tensor' if tp is not None else 'data'}-parallel {kind}"
     if rank == 0:
         mods = build()
-        step, state, moments = make_step(mods, None)
+        step, state, moments = make_step(mods, None, None)
+        params = [p for *_, ps in moments(state) for p in ps] if model_parallel > 1 else []
+        before = [p.detach().cpu().clone() for p in params]  # for the update's check
+        torch.cuda.reset_peak_memory_stats()
         with alignments(hard):
             _, single = step(state, *batches[0])
+        if model_parallel > 1:
+            out["single_max_memory_allocated_gib"] = round(
+                torch.cuda.max_memory_allocated() / 2 ** 30, 3)
         single = {k: v.item() for k, v in single.items()}
-        single_mu = [(n, [t.clone() for t in mu], pattern) for n, mu, pattern in moments(state)]
+        single_mu = [(n, [t.clone() for t in mu], pattern)
+                     for n, mu, pattern, _ in moments(state)]
+        single_after = [p.detach().cpu().clone() for p in params]
+        del params
         sec, _ = timed_steps(lambda s, b: step(s, *b), state, batches[0], DP_TIMED)
         out["single_step_ms"] = round(1e3 * sec, 3)
         del mods, step, state
@@ -4067,11 +4169,11 @@ def dp_kind(kind: str, rank: int, build, make_step, batches, rows):
         if oracle:  # the same step in float64 on the card, on the recorded alignment
             t0 = time.perf_counter()
             mods = tuple(m.double() for m in build())
-            step, state, moments = make_step(mods, None)
+            step, state, moments = make_step(mods, None, None)
             with alignments(hard, slice(None)) if hard else contextlib.nullcontext(), \
                     ctc_on_the_host():
                 step(state, *[to_dtype(a, torch.float64) for a in batches[0]])
-            exact = [[t.clone() for t in mu] for _, mu, _ in moments(state)]
+            exact = [[t.clone() for t in mu] for _, mu, _, _ in moments(state)]
             out["float64_step_s"] = round(time.perf_counter() - t0, 2)
             del mods, step, state
         torch.cuda.empty_cache()
@@ -4079,7 +4181,10 @@ def dp_kind(kind: str, rank: int, build, make_step, batches, rows):
     dist.broadcast_object_list(box, src=0)
     hard = [box[0]] if box[0] is not None else []
     mods = build()
-    step, state, moments = make_step(mods, group)
+    for m in mods:
+        parallelize(m, mesh)
+    step, state, moments = make_step(mods, group, tp)
+    torch.cuda.reset_peak_memory_stats()
     with contextlib.ExitStack() as stack:
         if train:
             stack.enter_context(alignments(hard, rows))
@@ -4091,28 +4196,60 @@ def dp_kind(kind: str, rank: int, build, make_step, batches, rows):
     box = [dp]
     dist.broadcast_object_list(box, src=0)
     if box[0] != dp:
-        raise AssertionError(f"data-parallel {kind}: rank {rank}'s metrics differ from rank 0's")
-    out["params_equal_on_ranks"] = dp_same_on_ranks(mods)
+        raise AssertionError(f"{what}: rank {rank}'s metrics differ from rank 0's")
+    out["params_equal_on_ranks"] = dp_same_on_ranks(
+        [[p for m in mods for p in m.parameters() if role(p) != SPLIT]])
     if not out["params_equal_on_ranks"]:
-        raise AssertionError(f"data-parallel {kind}: the ranks' parameters parted")
+        raise AssertionError(f"{what}: the ranks' {'replicated ' if tp else ''}parameters parted")
+    groups = moments(state)
+    if tp is not None:  # the shards made whole on every rank
+        groups = [(n, tp_full(ps, mu, mesh), pattern, ps) for n, mu, pattern, ps in groups]
+        tp_after = tp_full([p for *_, ps in groups for p in ps],
+                           [p for *_, ps in groups for p in ps], mesh)
+        out["params"] = param_counts(mods)
     if rank == 0:
+        bar = TRAIN_LOSS_RTOL if tp is None else TP_LOSS_RTOL
         out["metric_rel_err"] = {}
         for k, w in single.items():
             out["metric_rel_err"][k] = float(f"{abs(dp[k] - w) / max(abs(w), 1e-12):.3g}")
-            if not abs(dp[k] - w) <= TRAIN_LOSS_RTOL * max(abs(w), 1e-12):
-                raise AssertionError(f"data-parallel {kind}: metric {k} {dp[k]}, the "
-                                     f"single-process step's {w}")
-        out.update(dp_grads_parity(f"data-parallel {kind}", [
-            (n, mu, single_mu[i][1], exact[i], p) for i, (n, mu, p) in enumerate(moments(state))],
-            oracle))
+            if not abs(dp[k] - w) <= bar * max(abs(w), 1e-12):
+                raise AssertionError(f"{what}: metric {k} {dp[k]}, the single-process "
+                                     f"step's {w}")
+        pairs = [(n, mu, single_mu[i][1], exact[i], p)
+                 for i, (n, mu, p, _) in enumerate(groups)]
+        out.update(dp_grads_parity(what, pairs, oracle))
+        if tp is not None:
+            out.update(tp_update_parity(what, pairs, before, single_after, tp_after))
+    if tp is not None:
+        del groups, tp_after
     torch.cuda.synchronize()
     barrier()
     sec, metrics = timed_steps(lambda s, b: step(s, *b), state, batches[1], DP_TIMED)
     out["dp_step_ms"] = round(1e3 * sec, 3)
-    check_finite(f"data-parallel {kind}", metrics)
+    if tp is not None:
+        out["max_memory_allocated_gib"] = round(torch.cuda.max_memory_allocated() / 2 ** 30, 3)
+    check_finite(what, metrics)
     del mods, step, state
     torch.cuda.empty_cache()
-    log(f"[rank {rank}] data-parallel {kind} " + json.dumps(out))
+    log(f"[rank {rank}] {what} " + json.dumps(out))
+    return out
+
+
+def start_rank(rank: int, world: int, port: int) -> dict:
+    """A rank of phase 23 or 24: TF32 off, the kernels (built by the parent
+    process) loaded, ``torch.distributed`` started on the card."""
+    from e2e_tts_tpu_torch.kernels.build import library
+    from e2e_tts_tpu_torch.parallel import initialize
+    from e2e_tts_tpu_torch.parallel.distributed import backend
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name in KERNELS:
+        library(name)
+    if not initialize(f"127.0.0.1:{port}", world, rank, timeout_s=DP_TIMEOUT_S):
+        raise AssertionError("torch.distributed did not start")
+    out = {"backend": backend(), "device": f"cuda:{torch.cuda.current_device()}"}
+    log(f"[rank {rank}] backend {out['backend']} on {out['device']}")
     return out
 
 
@@ -4120,28 +4257,11 @@ def dp_rank(rank: int, world: int, port: int, work: str) -> int:
     """One rank of phase 23 (a process of its own): ``global_mesh`` serving,
     then one acoustic, vocoder and e2e step each, data-parallel, held to the
     single-process step.  Writes its result to ``work/rank_<rank>.json``."""
-    from e2e_tts_tpu_torch.config import default_config
-    from e2e_tts_tpu_torch.kernels.build import library
     import torch.distributed as dist
 
-    from e2e_tts_tpu_torch.parallel import initialize
-    from e2e_tts_tpu_torch.parallel.distributed import backend
     from e2e_tts_tpu_torch.serve.engine import SynthesisEngine
-    from e2e_tts_tpu_torch.text.symbols import symbols
-    from e2e_tts_tpu_torch.train import (AcousticBatch, E2EBatch, VocoderBatch, acoustic_optimizer,
-                                         build_acoustic_model, gan_optimizer, init_train_state,
-                                         init_vocoder_train_state, make_train_step,
-                                         make_vocoder_train_step)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    for name in KERNELS:  # built by the parent process
-        library(name)
-    if not initialize(f"127.0.0.1:{port}", world, rank, timeout_s=DP_TIMEOUT_S):
-        raise AssertionError("torch.distributed did not start")
-    out = {"backend": backend(), "device": f"cuda:{torch.cuda.current_device()}"}
-    log(f"[rank {rank}] backend {out['backend']} on {out['device']}")
-
+    out = start_rank(rank, world, port)
     eng = SynthesisEngine.from_random(seed=0, global_mesh=True)
     eng.vocoder.load_state_dict(torch.load(os.path.join(work, "vocoder.pt")))
     with recorded_inputs() as seen:
@@ -4152,44 +4272,69 @@ def dp_rank(rank: int, world: int, port: int, work: str) -> int:
     np.save(os.path.join(work, f"audio_{rank}.npy"), audio)
     del eng
     torch.cuda.empty_cache()
+    out.update(rank_steps(rank, world))
+    with open(os.path.join(work, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    log(f"[rank {rank}] " + json.dumps(out))
+    dist.destroy_process_group()
+    return 0
 
+
+def rank_steps(rank: int, world: int, model_parallel: int = 1) -> dict:
+    """One acoustic, vocoder GAN and e2e step (``dp_kind``) at default width
+    on phase 12, 13 and 14's batches over a (world / model_parallel,
+    model_parallel) mesh: each rank takes its data coordinate's rows."""
+    from e2e_tts_tpu_torch.config import default_config
+    from e2e_tts_tpu_torch.text.symbols import symbols
+    from e2e_tts_tpu_torch.train import (AcousticBatch, E2EBatch, VocoderBatch, acoustic_optimizer,
+                                         build_acoustic_model, gan_optimizer, init_train_state,
+                                         init_vocoder_train_state, make_train_step,
+                                         make_vocoder_train_step)
+    from e2e_tts_tpu_torch.train.vocoder_step import discriminator_params
+
+    out = {}
     cfg = default_config()
     n_words = max(cfg.models.fastspeech2.max_seq_len, 256)
     n_symbols = len(symbols)
     batch_np = train_batch(n_symbols)
-    mine = slice(rank * TRAIN_B // world, (rank + 1) * TRAIN_B // world)
+    n_data, coord = world // model_parallel, rank // model_parallel
+    mine = slice(coord * TRAIN_B // n_data, (coord + 1) * TRAIN_B // n_data)
 
-    def acoustic_step(mods, group):
+    def acoustic_step(mods, group, tp):
         model, = mods
         opt = acoustic_optimizer(cfg.train.fastspeech2_optimizer,
                                  cfg.models.fastspeech2.encoder_hidden)
         state = init_train_state(model, opt, group=group)
         state.step = DP_STEP
-        names = adam_names(model)
-        return (make_train_step(model, cfg, opt, n_words, group=group), state,
-                lambda s: [(names, s.opt_state.mu, ZERO_BY_CONSTRUCTION)])
+        names, params = adam_names(model), list(model.parameters())
+        return (make_train_step(model, cfg, opt, n_words, group=group, model_group=tp), state,
+                lambda s: [(names, s.opt_state.mu, ZERO_BY_CONSTRUCTION, params)])
 
     batch = AcousticBatch.from_numpy(batch_np, "cuda")
     out["acoustic"] = dp_kind(
         "acoustic", rank,
         lambda: (build_acoustic_model(cfg, n_symbols, TRAIN_SPEAKERS, dropout=False),),
-        acoustic_step, ((batch,), (AcousticBatch(*(t[mine] for t in batch)),), TRAIN_B), mine)
+        acoustic_step, ((batch,), (AcousticBatch(*(t[mine] for t in batch)),), TRAIN_B), mine,
+        model_parallel)
 
-    def vocoder_step(mods, group):
+    def vocoder_step(mods, group, tp):
         gen, mpd, msd = mods
         g_opt, d_opt = (gan_optimizer(cfg.train.hifigan_optimizer) for _ in range(2))
         state = init_vocoder_train_state(gen, g_opt, d_opt, mpd, msd)
         names = (adam_names(gen), adam_names(mpd, msd))
-        return (make_vocoder_train_step(gen, cfg, g_opt, d_opt, "hifigan", mpd, msd, group=group),
-                state, lambda s: [(names[0], s.g_opt_state.mu, None),
-                                  (names[1], s.d_opt_state.mu, None)])
+        params = (list(gen.parameters()), discriminator_params(mpd, msd))
+        return (make_vocoder_train_step(gen, cfg, g_opt, d_opt, "hifigan", mpd, msd, group=group,
+                                        model_group=tp),
+                state, lambda s: [(names[0], s.g_opt_state.mu, None, params[0]),
+                                  (names[1], s.d_opt_state.mu, None, params[1])])
 
     vb = VocoderBatch.from_numpy(vocoder_batch(), "cuda")
-    vrows = slice(rank * VOC_B // world, (rank + 1) * VOC_B // world)
+    vrows = slice(coord * VOC_B // n_data, (coord + 1) * VOC_B // n_data)
     out["vocoder"] = dp_kind("vocoder", rank, lambda: gan_modules(cfg), vocoder_step,
-                             ((vb,), (VocoderBatch(*(t[vrows] for t in vb)),), VOC_B), vrows)
+                             ((vb,), (VocoderBatch(*(t[vrows] for t in vb)),), VOC_B), vrows,
+                             model_parallel)
 
-    def e2e_step(mods, group):
+    def e2e_step(mods, group, tp):
         from e2e_tts_tpu_torch.train import init_e2e_state, make_e2e_train_step
 
         model, gen, mpd, msd = mods
@@ -4199,11 +4344,14 @@ def dp_rank(rank: int, world: int, port: int, work: str) -> int:
         state = init_e2e_state(model, gen, am_opt, g_opt, d_opt, mpd, msd, group=group)
         state.step = DP_STEP
         names = (adam_names(model), adam_names(gen), adam_names(mpd, msd))
+        params = (list(model.parameters()), list(gen.parameters()),
+                  discriminator_params(mpd, msd))
         step = make_e2e_train_step(model, gen, cfg, am_opt, g_opt, d_opt, n_words, E2E_SEG,
-                                   mpd, msd, group=group)
-        return (step, state, lambda s: [(names[0], s.am_opt_state.mu, ZERO_BY_CONSTRUCTION),
-                                        (names[1], s.g_opt_state.mu, None),
-                                        (names[2], s.d_opt_state.mu, None)])
+                                   mpd, msd, group=group, model_group=tp)
+        return (step, state, lambda s: [(names[0], s.am_opt_state.mu, ZERO_BY_CONSTRUCTION,
+                                         params[0]),
+                                        (names[1], s.g_opt_state.mu, None, params[1]),
+                                        (names[2], s.d_opt_state.mu, None, params[2])])
 
     audio_np = e2e_audio(batch_np)
     starts = torch.from_numpy(np.random.RandomState(1).randint(
@@ -4212,12 +4360,176 @@ def dp_rank(rank: int, world: int, port: int, work: str) -> int:
     out["e2e"] = dp_kind(
         "e2e", rank, lambda: e2e_modules(cfg, n_symbols, "cuda", dropout=False), e2e_step,
         ((eb, starts), (E2EBatch(AcousticBatch(*(t[mine] for t in eb.acoustic)), eb.audio[mine]),
-                        starts[mine]), TRAIN_B), mine)
+                        starts[mine]), TRAIN_B), mine, model_parallel)
+    return out
+
+
+def tp_forward(rank: int) -> dict:
+    """Phase 24's split eval forward: the default-width acoustic model
+    (``SynthesisEngine.from_random(seed=0)``) on the 343-character request's
+    first batch (the engine's own stage-1 inputs and stage-2 bucket),
+    unsplit and then split by ``parallelize`` over (data 1, model 2); the
+    durations equal, the mel within MEL_TOL, and the flash kernel launched
+    on the rank's local heads, held to its plain version on their inputs."""
+    from e2e_tts_tpu_torch.parallel import make_mesh
+    from e2e_tts_tpu_torch.parallel.tensor_parallel import parallelize
+    from e2e_tts_tpu_torch.serve.engine import SynthesisEngine
+
+    eng = SynthesisEngine.from_random(seed=0)
+    model, calls = eng.acoustic, {}
+    real1, real2 = model.synthesize_stage1, model.synthesize_stage2
+
+    def stage1(*a, **k):
+        calls.setdefault(1, (a, k))
+        return real1(*a, **k)
+
+    def stage2(*a, **k):
+        calls.setdefault(2, k["max_mel_len"])
+        return real2(*a, **k)
+
+    model.synthesize_stage1, model.synthesize_stage2 = stage1, stage2
+    try:
+        eng.synthesize(REQUESTS[-1])
+    finally:
+        del model.synthesize_stage1, model.synthesize_stage2
+    (args, kw), T = calls[1], calls[2]
+
+    def run():
+        x, durations = model.synthesize_stage1(*args, **kw)
+        mel, _ = model.synthesize_stage2(x, durations, T)
+        return durations, mel
+
+    durations, mel = run()
+    parallelize(model, make_mesh(model_parallel=TP_MODEL))
+    with recorded_inputs() as seen:
+        split_durations, split_mel = run()
+        torch.cuda.synchronize()
+        flash = flash_counts()["flash_attention"]
+    if not torch.equal(split_durations, durations):
+        raise AssertionError(f"rank {rank} split forward: the durations differ")
+    gap = float((split_mel - mel).abs().max())
+    if not gap < MEL_TOL:
+        raise AssertionError(f"rank {rank} split forward: mel max |diff| {gap} (bar {MEL_TOL})")
+    if not flash:
+        raise AssertionError(f"rank {rank} split forward: the flash kernel did not launch")
+    heads = model.decoder.layers[0].slf_attn
+    out = dict(batch=list(args[1].shape), T=T, mel_max_abs=float(f"{gap:.3g}"), flash=flash,
+               flash_shapes=sorted(seen), local_rows_of_w_q=heads.w_q.weight.shape[0],
+               flash_err=check_serving_inputs(seen, f"rank {rank} split forward"))
+    log(f"[rank {rank}] split eval forward " + json.dumps(out))
+    del eng, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(rank: int, world: int, port: int, work: str) -> int:
+    """One rank of phase 24 (a process of its own): the split eval forward,
+    then one acoustic, vocoder and e2e step each over (data 1, model 2),
+    held to the single-process step.  Writes ``work/rank_<rank>.json``."""
+    import torch.distributed as dist
+
+    out = start_rank(rank, world, port)
+    out["forward"] = tp_forward(rank)
+    out.update(rank_steps(rank, world, TP_MODEL))
     with open(os.path.join(work, f"rank_{rank}.json"), "w") as f:
         json.dump(out, f)
     log(f"[rank {rank}] " + json.dumps(out))
     dist.destroy_process_group()
     return 0
+
+
+def run_rank_processes(what: str, flag: str, work: str) -> list:
+    """DP_WORLD ranks of this script (``flag``: ``--dp-rank`` or
+    ``--tp-rank``) on 127.0.0.1, their logs' ends printed; a rank that fails,
+    or that has not ended within DP_TIMEOUT_S, fails the run.  Each rank's
+    JSON result."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    logs = [open(os.path.join(work, f"rank_{r}.log"), "w+") for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r),
+                               str(DP_WORLD), str(port), work], stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(DP_WORLD)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, DP_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise AssertionError(f"{what}: a rank did not end within {DP_TIMEOUT_S} s")
+    finally:
+        for r, f in enumerate(logs):
+            f.seek(0)
+            for line in f.read().splitlines()[-60:]:
+                log(f"  rank {r}: {line}")
+            f.close()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        raise AssertionError(f"{what}: rank(s) {failed} failed")
+    results = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(work, f"rank_{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def rank_launches(results, what: str):
+    """The training kernels' launches and worst errors over the ranks'
+    acoustic and e2e steps; each rank must launch each kernel once a step."""
+    launches = {k: 0 for k in ("mas", "ctc_fwd", "ctc_bwd")}
+    errs = dict(launches)
+    for r in results:
+        for kind in ("acoustic", "e2e"):
+            expect_launches(f"{what} {kind} step", r[kind]["launches"],
+                            {"mas": 1, "ctc_fwd": 1, "ctc_bwd": 1})
+            for k in launches:
+                launches[k] += r[kind]["launches"][k]
+                errs[k] = max(errs[k], r[kind]["errs"][k])
+    return launches, errs
+
+
+def tensor_parallel(smi: str):
+    """Phase 24: tensor parallelism.  Two ranks share the card at (data 1,
+    model 2) (processes of their own, ``tp_rank``; gloo): the split eval
+    forward (``tp_forward``), then one acoustic, vocoder and e2e step each
+    on the whole of phase 12, 13 and 14's batches with the wide weights
+    split (``dp_kind`` with the model axis), held to the single-process
+    step.  Returns (flash launches, the flash kernel's worst error on the
+    phase's inputs, training launches, their worst errors)."""
+    log(f"tensor parallel: {smi}; two ranks on one card over gloo (NCCL and more than one "
+        "card are not exercised here)")
+    work = tempfile.mkdtemp(prefix="tensor_parallel_")
+    t0 = time.perf_counter()
+    results = run_rank_processes("tensor parallel", "--tp-rank", work)
+    launches, errs = rank_launches(results, "tensor-parallel")
+    kinds = ("acoustic", "vocoder", "e2e")
+    summary = {kind: dict(
+        single_step_ms=results[0][kind]["single_step_ms"],
+        tp_step_ms=[r[kind]["dp_step_ms"] for r in results],
+        params=[r[kind]["params"] for r in results],
+        max_memory_allocated_gib=[r[kind]["max_memory_allocated_gib"] for r in results],
+        single_max_memory_allocated_gib=results[0][kind]["single_max_memory_allocated_gib"],
+        metric_rel_err_worst=max(results[0][kind]["metric_rel_err"].values()),
+        **{k: results[0][kind].get(k) for k in (
+            "grad_rel_worst", "grad_worst_of_bar", "update_rel_worst", "oracle",
+            "float64_step_s")}) for kind in kinds}
+    forward = [r["forward"] for r in results]
+    log("tensor parallel " + json.dumps(dict(
+        card=smi, ranks=DP_WORLD, mesh={"data": 1, "model": TP_MODEL},
+        backend=results[0]["backend"], devices=[r["device"] for r in results],
+        seconds=round(time.perf_counter() - t0, 1),
+        forward=dict(mel_max_abs=[f["mel_max_abs"] for f in forward],
+                     flash=[f["flash"] for f in forward], T=forward[0]["T"],
+                     batch=forward[0]["batch"]),
+        training_launches=[{kind: r[kind]["launches"] for kind in ("acoustic", "e2e")}
+                           for r in results],
+        note="two ranks on one card measure the code path, not scaling", **summary)))
+    return (sum(f["flash"] for f in forward), max(f["flash_err"] for f in forward), launches,
+            errs)
 
 
 def data_parallel(smi: str, eng):
@@ -4233,8 +4545,6 @@ def data_parallel(smi: str, eng):
     within DP_TIMEOUT_S, fails the run.  Returns (flash launches, the flash
     kernel's worst error on the phase's inputs, training launches, their
     worst errors)."""
-    import socket
-
     from e2e_tts_tpu_torch.serve.engine import FRAMES_PER_PHONEME_EST, SynthesisEngine
 
     log(f"data parallel: {smi}; torch.cuda.device_count() = {torch.cuda.device_count()}")
@@ -4268,35 +4578,8 @@ def data_parallel(smi: str, eng):
 
     work = tempfile.mkdtemp(prefix="data_parallel_")
     torch.save(eng.vocoder.state_dict(), os.path.join(work, "vocoder.pt"))
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    logs = [open(os.path.join(work, f"rank_{r}.log"), "w+") for r in range(DP_WORLD)]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
-                               str(DP_WORLD), str(port), work], stdout=logs[r],
-                              stderr=subprocess.STDOUT) for r in range(DP_WORLD)]
-    try:
-        for p in procs:
-            p.wait(timeout=max(1.0, DP_TIMEOUT_S - (time.perf_counter() - t0)))
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-            p.wait()
-        raise AssertionError(f"data parallel: a rank did not end within {DP_TIMEOUT_S} s")
-    finally:
-        for r, f in enumerate(logs):
-            f.seek(0)
-            for line in f.read().splitlines()[-60:]:
-                log(f"  rank {r}: {line}")
-            f.close()
-    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if failed:
-        raise AssertionError(f"data parallel: rank(s) {failed} failed")
-    results = []
-    for r in range(DP_WORLD):
-        with open(os.path.join(work, f"rank_{r}.json")) as f:
-            results.append(json.load(f))
+    results = run_rank_processes("data parallel", "--dp-rank", work)
     audios = [np.load(os.path.join(work, f"audio_{r}.npy")) for r in range(DP_WORLD)]
     if not all(np.array_equal(a, audios[0]) for a in audios):
         raise AssertionError("global_mesh: the ranks returned other waveforms")
@@ -4304,15 +4587,7 @@ def data_parallel(smi: str, eng):
              "vs the one-process engine", audios[0], ref)
     flash += sum(r["flash"]["flash_attention"] for r in results)
     flash_err = max([flash_err] + [r["flash_err"] for r in results])
-    launches = {k: 0 for k in ("mas", "ctc_fwd", "ctc_bwd")}
-    errs = dict(launches)
-    for r in results:
-        for kind in ("acoustic", "e2e"):
-            expect_launches(f"data-parallel {kind} step", r[kind]["launches"],
-                            {"mas": 1, "ctc_fwd": 1, "ctc_bwd": 1})
-            for k in launches:
-                launches[k] += r[kind]["launches"][k]
-                errs[k] = max(errs[k], r[kind]["errs"][k])
+    launches, errs = rank_launches(results, "data-parallel")
     summary = {kind: dict(single_step_ms=results[0][kind]["single_step_ms"],
                           dp_step_ms=[r[kind]["dp_step_ms"] for r in results],
                           metric_rel_err_worst=max(results[0][kind]["metric_rel_err"].values()),
@@ -4329,6 +4604,8 @@ def data_parallel(smi: str, eng):
 def main() -> int:
     if sys.argv[1:2] == ["--dp-rank"]:  # one rank of phase 23, started by the phase
         return dp_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+    if sys.argv[1:2] == ["--tp-rank"]:  # one rank of phase 24, started by the phase
+        return tp_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
     smi = environment()
     build()
     attn = check_attention()
@@ -4388,6 +4665,10 @@ def main() -> int:
         dp_flash, dp_flash_err, dp_launches, dp_errs = data_parallel(smi, eng)
         path_errs.append(dp_flash_err)
         log(f"data parallelism phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        tp_flash, tp_flash_err, tp_launches, tp_errs = tensor_parallel(smi)
+        path_errs.append(tp_flash_err)
+        log(f"tensor parallelism phase: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
@@ -4395,7 +4676,7 @@ def main() -> int:
     for name, dtypes, prefix, src, n, errs in (
             ("flash_attention", ("float32",), "kernel", source,
              launches["flash_attention"] + router_launches
-             + options_flash["float32"]["flash_attention"] + dp_flash, path_errs),
+             + options_flash["float32"]["flash_attention"] + dp_flash + tp_flash, path_errs),
             # the 16-bit kernels: timed in bfloat16, the serving dtype, forced
             # in turns; the error in the dtype's values (within one ulp of the
             # plain version, phase 3); launches in phase 16's batch-8 run,
@@ -4427,7 +4708,7 @@ def main() -> int:
             # F.ctc_loss forward and backward: no PyTorch call runs the backward alone
             ("ctc_bwd", "e2e_tts_tpu/ops/ctc.py:30", train_row["ctc_library_ms"])):
         errs = [train_errs[name], e2e_errs[name], corpus_errs[name], cli_errs[name],
-                family_errs[name], mp_errs[name], dp_errs[name]] + [
+                family_errs[name], mp_errs[name], dp_errs[name], tp_errs[name]] + [
             r[{"mas": "mas_err", "ctc_fwd": "ctc_loss_err", "ctc_bwd": "ctc_grad_err"}[name]]
             for r in train_kernels]
         kernels.append(dict(
@@ -4436,7 +4717,7 @@ def main() -> int:
             replaces=replaces,
             launches=(train_launches[name] + e2e_launches[name] + corpus_launches[name]
                       + cli_launches[name] + family_launches[name] + mp_launches[name]
-                      + dp_launches[name]),
+                      + dp_launches[name] + tp_launches[name]),
             max_abs_err=max(errs),
             ms=train_row[f"{name}_ms"], plain_ms=train_row[f"{name}_plain_ms"],
             bound_ms=train_row[f"{name}_bound_ms"], bound_by=train_row[f"{name}_bound_by"],

@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor_parallel import copy_to_model, gather_from_model
+
 
 HALF = (torch.bfloat16, torch.float16)
 
@@ -202,6 +204,16 @@ def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor], view=(-1,)) -> torc
     return y if bias is None else y + bias.view(view)
 
 
+def _bias(module: nn.Module, which) -> Optional[torch.Tensor]:
+    """The bias a layer adds, in its compute dtype: its own (``which``
+    True), none (False), or a slice of it (a rank's columns under tensor
+    parallelism, ``parallel/tensor_parallel``)."""
+    if which is False:
+        return None
+    b = cast_param(module, "bias")
+    return b if which is True or b is None else b[which]
+
+
 class Linear(nn.Linear):
     """Dense layer with lecun-normal weights and zero bias by default."""
 
@@ -214,17 +226,22 @@ class Linear(nn.Linear):
             if bias:
                 self.bias.fill_(bias_init)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias=True) -> torch.Tensor:
+        """``bias``: the layer's own (True), none (False) or a slice of it."""
         if self.dtype is None:
-            return super().forward(x)
+            return F.linear(x, self.weight, _bias(self, bias))
         y = F.linear(x.to(self.dtype), cast_param(self, "weight"))
-        return _add_bias(y, cast_param(self, "bias"))
+        return _add_bias(y, _bias(self, bias))
 
 
 class Embedding(nn.Embedding):
     """Lookup table with normal(std) rows; ``zero_row0`` zeroes the padding
     row.  The rows come out in ``dtype`` (flax looks them up in float32 and
-    its callers cast)."""
+    its callers cast).  Split over a model group (``tp``, set by
+    ``parallel/tensor_parallel.parallelize``), the weight holds this rank's
+    features, and the rows are gathered."""
+
+    tp = None
 
     def __init__(self, n: int, d: int, *, generator: torch.Generator, device=None,
                  std: Optional[float] = None, zero_row0: bool = False, dtype=None):
@@ -237,9 +254,8 @@ class Embedding(nn.Embedding):
             self.weight.copy_(w)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        if self.dtype is None:
-            return super().forward(ids)
-        return F.embedding(ids, cast_param(self, "weight"))
+        rows = F.embedding(ids, self.weight if self.dtype is None else cast_param(self, "weight"))
+        return rows if self.tp is None else gather_from_model(rows, -1, self.tp.group)
 
 
 class Conv1d(nn.Module):
@@ -273,18 +289,20 @@ class Conv1d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d_out, device=device)) if bias else None
         self.groups = 1
 
-    def conv_ncw(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, C_in, T) -> (B, C_out, T)."""
+    def conv_ncw(self, x: torch.Tensor, bias=True) -> torch.Tensor:
+        """(B, C_in, T) -> (B, C_out, T).  ``bias``: the layer's own (True),
+        none (False) or a slice of it."""
         dt, groups = self.dtype, self.groups
         if dt is None:
+            b = _bias(self, bias)
             if (self.UNFOLD_TRAINING and x.is_cuda and x.dtype == torch.float32 and groups == 1
                     and torch.is_grad_enabled()):
-                return conv1d_unfold(F.pad(x, self.pad), self.weight, self.bias, self.dilation)
-            return F.conv1d(F.pad(x, self.pad), self.weight, self.bias, dilation=self.dilation,
+                return conv1d_unfold(F.pad(x, self.pad), self.weight, b, self.dilation)
+            return F.conv1d(F.pad(x, self.pad), self.weight, b, dilation=self.dilation,
                             groups=groups)
         y = F.conv1d(F.pad(x.to(dt), self.pad), cast_param(self, "weight"),
                      dilation=self.dilation, groups=groups)
-        return _add_bias(y, cast_param(self, "bias"), (-1, 1))
+        return _add_bias(y, _bias(self, bias), (-1, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, C_in) -> (B, T, C_out)."""
@@ -383,7 +401,15 @@ class _WeightNorm(nn.Module):
     last axis of its (..., in, out) kernel.  Autograd and the optimizer see v
     and g, never w.  In a 16-bit compute ``dtype`` the kernel is made in
     float32 and cast, and the input, the product and the bias are in the
-    dtype, as the JAX modules' ``astype(self.dtype)``."""
+    dtype, as the JAX modules' ``astype(self.dtype)``.
+
+    Split over a model group (``tp``, set by
+    ``parallel/tensor_parallel.parallelize``), ``v`` holds this rank's output
+    channels, which take their slices of the replicated ``g`` and bias (the
+    norm is per output channel, so it stays local); the input enters through
+    ``copy_to_model`` and the output channels are gathered."""
+
+    tp = None
 
     def __init__(self, shape, out_dim: int, *, generator: torch.Generator, device=None,
                  std: float = 0.01, dtype=None):
@@ -396,18 +422,29 @@ class _WeightNorm(nn.Module):
         self.g = nn.Parameter(torch.linalg.vector_norm(v, dim=self.norm_dims))
         self.bias = nn.Parameter(torch.zeros(shape[out_dim], device=device))
 
+    def _mine(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (per output channel) cut to this rank's channels."""
+        return t if self.tp is None else t[self.tp.part(t.shape[0])]
+
     def weight(self) -> torch.Tensor:
         norm = torch.linalg.vector_norm(self.v, dim=self.norm_dims, keepdim=True)
         view = [1] * self.v.dim()
         view[self.out_dim] = -1
-        return self.v * (self.g.view(view) / torch.clamp(norm, min=1e-12))
+        return self.v * (self._mine(self.g).view(view) / torch.clamp(norm, min=1e-12))
 
     def _operands(self, x: torch.Tensor):
-        """(input, kernel, bias) in the compute dtype."""
-        w, b = self.weight(), self.bias
+        """(input, kernel, bias) in the compute dtype; a split layer's input
+        through ``copy_to_model``."""
+        if self.tp is not None:
+            x = copy_to_model(x, self.tp.group)
+        w, b = self.weight(), self._mine(self.bias)
         if self.dtype is None:
             return x, w, b
         return x.to(self.dtype), w.to(self.dtype), b.to(self.dtype)
+
+    def _gathered(self, y: torch.Tensor) -> torch.Tensor:
+        """A split layer's (B, C_out / m, ...) output gathered on channels."""
+        return y if self.tp is None else gather_from_model(y, 1, self.tp.group)
 
 
 class WNConv1d(_WeightNorm):
@@ -433,8 +470,8 @@ class WNConv1d(_WeightNorm):
         x, w, b = self._operands(x)
         conf = (self.stride, left, self.dilation, self.groups)
         if w.dtype in HALF:  # the product rounded, then the bias added and rounded, as JAX
-            return _add_bias(F.conv1d(x, w, None, *conf), b, (-1, 1))
-        return F.conv1d(x, w, b, *conf)
+            return self._gathered(_add_bias(F.conv1d(x, w, None, *conf), b, (-1, 1)))
+        return self._gathered(F.conv1d(x, w, b, *conf))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, C_in) -> (B, T_out, C_out)."""
@@ -458,12 +495,13 @@ class WNConvTranspose1d(_WeightNorm):
     def conv_ncw(self, x: torch.Tensor) -> torch.Tensor:
         x, w, b = self._operands(x)
         if w.dtype not in HALF:
-            return F.conv_transpose1d(x, w, b, stride=self.stride, padding=self.padding)
+            return self._gathered(F.conv_transpose1d(x, w, b, stride=self.stride,
+                                                     padding=self.padding))
         if not x.is_cuda and torch.is_grad_enabled() and w.requires_grad:
             y = _ConvTranspose1dHalfCPU.apply(x, w, self.stride, self.padding)
         else:
             y = F.conv_transpose1d(x, w, stride=self.stride, padding=self.padding)
-        return _add_bias(y, b, (-1, 1))  # the bias after the rounded product, as JAX
+        return self._gathered(_add_bias(y, b, (-1, 1)))  # bias after the rounded product, as JAX
 
 
 class WNConv2d(_WeightNorm):

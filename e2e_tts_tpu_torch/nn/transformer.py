@@ -17,6 +17,19 @@ plain branch.
 Dropout (after ``fc`` and after ``w_2``) draws from the generator passed as
 ``rng``; ``rng=None`` is deterministic.  Masks are True = valid and multiply.
 ``remat`` recomputes each block in the backward pass (``common.remat``).
+
+Split over a model group (``tp``, set by
+``parallel/tensor_parallel.parallelize``), attention is megatron's: ``w_q``,
+``w_k`` and ``w_v`` column-parallel (this rank's heads, with its slices of
+the replicated biases), attention on the local heads (through the kernel,
+the local heads folded into the batch, where the unsplit layer would take
+it), ``fc`` row-parallel (its partial products summed over the group, then
+its bias once).  Where the model axis does not divide the heads, a head is
+cut across ranks: q, k and v are gathered, every rank attends over the whole
+heads and keeps its columns for ``fc``.  The FFN's ``w_1`` is
+column-parallel and ``w_2`` row-parallel, both through ``Conv1d.conv_ncw``
+(so its training path on CUDA holds).  Dropout draws on the replicated
+activations after the sums, so every rank of the group draws one mask.
 """
 
 from __future__ import annotations
@@ -28,14 +41,18 @@ import torch
 from torch import nn
 
 from ..kernels import flash_attention
-from .common import (Conv1d, Embedding, LayerNorm, Linear, cast, compute_dtype, dropout, island,
-                     run_layers, sinusoid_table)
+from ..parallel.tensor_parallel import (copy_to_model, gather_from_model, reduce_from_model,
+                                        scatter_to_model)
+from .common import (Conv1d, Embedding, LayerNorm, Linear, cast, cast_param, compute_dtype,
+                     dropout, island, run_layers, sinusoid_table)
 
 NEG_INF = -1e9
 FLASH_MIN_LEN = 256
 
 
 class MultiHeadAttention(nn.Module):
+    tp = None
+
     def __init__(self, d_model: int, n_head: int, use_flash: bool = False, dropout: float = 0.1,
                  *, generator: torch.Generator, device=None, dtype=None):
         super().__init__()
@@ -51,11 +68,34 @@ class MultiHeadAttention(nn.Module):
         self.layer_norm = LayerNorm(d_model, 1e-5, device=device, dtype=dtype)
 
     def forward(self, x, pair_mask, kv_lens=None, rng: Optional[torch.Generator] = None):
+        if self.tp is None:
+            B, T, _ = x.shape
+            q, k, v = (w(x).view(B, T, self.n_head, self.d_k)
+                       for w in (self.w_q, self.w_k, self.w_v))
+            h = self.fc(self._attend(q, k, v, pair_mask, kv_lens))
+        else:
+            h = self._split(x, pair_mask, kv_lens)
+        return self.layer_norm(island(dropout(h, self.dropout, rng)) + island(x))
+
+    def _split(self, x, pair_mask, kv_lens):
+        """``fc``'s output, the attention split over the model group."""
         B, T, _ = x.shape
-        H, dk = self.n_head, self.d_k
-        q = self.w_q(x).view(B, T, H, dk)
-        k = self.w_k(x).view(B, T, H, dk)
-        v = self.w_v(x).view(B, T, H, dk)
+        dk, group = self.d_k, self.tp.group
+        cols = self.tp.part(self.n_head * dk)  # this rank's columns of q, k, v and fc's input
+        xs = copy_to_model(x, group)
+        q, k, v = (w(xs, bias=cols) for w in (self.w_q, self.w_k, self.w_v))
+        if cols.start % dk == 0 and (cols.stop - cols.start) % dk == 0:  # whole local heads
+            out = self._attend(*(t.reshape(B, T, -1, dk) for t in (q, k, v)), pair_mask, kv_lens)
+        else:  # a head cut across ranks
+            q, k, v = (gather_from_model(t, -1, group).view(B, T, self.n_head, dk)
+                       for t in (q, k, v))
+            out = scatter_to_model(self._attend(q, k, v, pair_mask, kv_lens), -1, group)
+        return reduce_from_model(self.fc(out, bias=False), group) + cast_param(self.fc, "bias")
+
+    def _attend(self, q, k, v, pair_mask, kv_lens):
+        """(B, T, H, dk) q, k, v -> (B, T, H * dk): the kernel at T >= 256
+        with ``use_flash`` outside autograd, else plain attention."""
+        B, T, H, dk = q.shape
         if self.use_flash and kv_lens is not None and T >= FLASH_MIN_LEN:
             if torch.is_grad_enabled() and q.requires_grad:
                 raise RuntimeError("the flash attention kernel is forward only: train with "
@@ -72,10 +112,12 @@ class MultiHeadAttention(nn.Module):
             scores = torch.where(pair_mask[:, None], scores, torch.full_like(scores, NEG_INF))
             attn = torch.softmax(scores, dim=-1).to(v.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, T, H * dk)
-        return self.layer_norm(island(dropout(self.fc(out), self.dropout, rng)) + island(x))
+        return out
 
 
 class ConvFFN(nn.Module):
+    tp = None
+
     def __init__(self, d_model: int, d_inner: int, kernel_sizes: Tuple[int, int] = (9, 1),
                  dropout: float = 0.1, *, generator: torch.Generator, device=None, dtype=None):
         super().__init__()
@@ -86,7 +128,14 @@ class ConvFFN(nn.Module):
         self.layer_norm = LayerNorm(d_model, 1e-5, device=device, dtype=dtype)
 
     def forward(self, x, rng: Optional[torch.Generator] = None):
-        h = self.w_2.conv_ncw(torch.relu(self.w_1.conv_ncw(x.transpose(1, 2))))
+        if self.tp is None:
+            h = self.w_2.conv_ncw(torch.relu(self.w_1.conv_ncw(x.transpose(1, 2))))
+        else:
+            group = self.tp.group
+            cols = self.tp.part(self.w_1.bias.shape[0])
+            h = torch.relu(self.w_1.conv_ncw(copy_to_model(x, group).transpose(1, 2), bias=cols))
+            h = reduce_from_model(self.w_2.conv_ncw(h, bias=False), group)
+            h = h + cast_param(self.w_2, "bias")[:, None]
         return self.layer_norm(island(dropout(h.transpose(1, 2), self.dropout, rng)) + island(x))
 
 

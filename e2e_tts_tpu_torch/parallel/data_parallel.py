@@ -22,10 +22,12 @@ the N local steps one global step:
   way on every rank;
 - the logged metrics: the sum of the ranks' shares (:func:`reduce_metrics`);
 - random draws: dropout masks come from a generator seeded with the seed
-  plus the rank (:func:`rank_seed`), so the rows of each rank draw their own
-  masks; draws made once for the whole batch (the e2e step's crop starts)
-  come from a generator with the same seed on every rank, drawn at the global
-  batch's size, each rank keeping its rows.
+  plus the rank in the data group (:func:`rank_seed`), so the rows of each
+  rank draw their own masks, and the ranks of one model group
+  (``tensor_parallel``), which share their rows, draw the same; draws made
+  once for the whole batch (the e2e step's crop starts) come from a
+  generator with the same seed on every rank, drawn at the global batch's
+  size, each rank keeping its rows.
 
 An explicit reduction after ``backward`` and not ``DistributedDataParallel``:
 the GAN steps run two optimizers over several backward passes, which DDP's
@@ -63,20 +65,27 @@ def group_rank(group) -> int:
 
 def rank_seed(seed: int, group) -> int:
     """The dropout generator's seed on this rank: ``seed`` plus its rank in
-    the group (``seed`` in one process)."""
+    the data ``group``, its data coordinate (``seed`` in one process, and on
+    every rank of a data axis of one), never its global rank."""
     return seed + group_rank(group)
 
 
 def reduce_gradients(grads: List[torch.Tensor], group,
                      bucket_bytes: int = BUCKET_BYTES) -> List[torch.Tensor]:
-    """The gradients summed over ``group`` (in place; returned): tensors of
-    one dtype and device are flattened into buckets of at most
-    ``bucket_bytes`` (a tensor larger than that alone), one ``all_reduce`` a
-    bucket."""
+    """The gradients summed over ``group`` (in place; returned), one
+    ``all_reduce`` a bucket (:func:`bucketed`)."""
     if group is None:
         return grads
+    bucketed(grads, lambda flat: dist.all_reduce(flat, group=group), bucket_bytes)
+    return grads
+
+
+def bucketed(tensors: List[torch.Tensor], collective, bucket_bytes: int = BUCKET_BYTES) -> None:
+    """``collective(flat)`` on the tensors, in place: tensors of one dtype
+    and device are flattened into buckets of at most ``bucket_bytes`` (a
+    tensor larger than that alone), one call a bucket."""
     buckets: Dict[tuple, List[List[torch.Tensor]]] = {}
-    for t in grads:
+    for t in tensors:
         runs = buckets.setdefault((t.dtype, t.device), [[]])
         size = sum(x.numel() for x in runs[-1]) * t.element_size()
         if runs[-1] and size + t.numel() * t.element_size() > bucket_bytes:
@@ -85,12 +94,11 @@ def reduce_gradients(grads: List[torch.Tensor], group,
     for runs in buckets.values():
         for run in runs:
             flat = torch.cat([t.reshape(-1) for t in run])
-            dist.all_reduce(flat, group=group)
+            collective(flat)
             offset = 0
             for t in run:
                 t.copy_(flat[offset:offset + t.numel()].view_as(t))
                 offset += t.numel()
-    return grads
 
 
 def reduce_counts(counts: Sequence[torch.Tensor], group) -> List[torch.Tensor]:

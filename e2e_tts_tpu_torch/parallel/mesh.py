@@ -71,3 +71,15 @@ def make_data_mesh(batch_size: int, model_parallel: int = 1):
     """A mesh whose data axis divides ``batch_size`` (it shrinks to fit)."""
     shape = data_mesh_shape(process_count(), batch_size, model_parallel)
     return make_mesh(shape[0] * shape[1], model_parallel=model_parallel)
+
+
+def model_group(mesh):
+    """The process group of the mesh's "model" axis (this rank's row of
+    ranks that split the wide weights between them), or None where the axis
+    has one rank or this rank is outside the mesh: the twin of
+    ``data_parallel.data_group``."""
+    if mesh is None or mesh.get_coordinate() is None:
+        return None
+    if dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1) == 1:
+        return None
+    return mesh.get_group("model")

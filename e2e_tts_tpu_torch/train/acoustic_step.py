@@ -26,7 +26,16 @@ batch's, the gradients are summed over the group before clipping and Adam,
 the model's BatchNorms take the global batch's statistics, and the metrics
 are the global ones, so every rank holds the parameters of JAX's sharded
 step.  ``init_train_state(..., group=)`` seeds each rank's dropout
-generator with the seed plus its rank.
+generator with the seed plus its rank in the data group.
+
+Tensor parallelism: a model split by ``parallel/tensor_parallel.parallelize``
+over the mesh's model axis trains with ``make_train_step(...,
+model_group=)`` (``parallel.mesh.model_group``): each rank holds its shards
+of the split weights (Adam's moments take their local shapes: build the
+state after ``parallelize``), the gradients are made whole over the model
+group before the data group's sum, and the clip takes the whole model's
+norm.  The aligner, MAS and the CTC are replicated: every model rank runs
+them on the same tensors.
 
 Mixed precision is the model's compute dtype, as in JAX: a model built in
 ``torch.bfloat16`` (``build_acoustic_model(..., dtype=)``) casts its float32
@@ -47,6 +56,7 @@ from ..models.acoustic_loss import fastspeech2_loss
 from ..nn.variance import FeatureStats
 from ..parallel.data_parallel import (rank_seed, reduce_gradients, reduce_metrics,
                                       set_batchnorm_group)
+from ..parallel.tensor_parallel import reduce_model_gradients
 from .optim import AdamState, ScheduledAdam
 
 
@@ -152,12 +162,13 @@ def _losses(model, config, batch: AcousticBatch, step: int, n_words: int, rng=No
 
 
 def make_train_step(model: FastSpeech2, config, optimizer: ScheduledAdam, n_words: int,
-                    group=None):
+                    group=None, model_group=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``; the state is
     updated in place and returned.  Metrics: every loss term, ``total`` and
     ``grad_norm`` (before clipping).  ``group``: the data group (module
     docstring); with ``grad_acc_step`` N each rank's rows hold its shard of
-    each of the N microbatches in turn (``shard_batch(..., grad_accum=N)``)."""
+    each of the N microbatches in turn (``shard_batch(..., grad_accum=N)``).
+    ``model_group``: the model group of a parallelized model."""
     grad_accum = max(int(config.train.grad_acc_step), 1)
     params = list(model.parameters())
     if group is not None:
@@ -183,9 +194,9 @@ def make_train_step(model: FastSpeech2, config, optimizer: ScheduledAdam, n_word
         if grad_accum > 1:
             grads = [g * (1.0 / grad_accum) for g in grads]
             sums = {k: v * (1.0 / grad_accum) for k, v in sums.items()}
-        grads = reduce_gradients(grads, group)
+        grads = reduce_gradients(reduce_model_gradients(params, grads, model_group), group)
         sums = reduce_metrics(sums, group)
-        sums["grad_norm"] = optimizer.apply(params, grads, state.opt_state)
+        sums["grad_norm"] = optimizer.apply(params, grads, state.opt_state, model_group)
         for p in params:
             p.grad = None
         state.step += 1

@@ -19,6 +19,10 @@ batch, global metrics.  The crop starts are one draw for the whole batch:
 ``init_e2e_state(..., group=)`` gives the state a crop generator with the
 same seed on every rank (``crop_rng``), drawn at the global batch's size and
 cut to the rank's rows, beside the dropout generator of seed plus rank.
+
+``model_group`` (tensor parallelism, ``parallel/tensor_parallel``) trains an
+acoustic model and a generator split by ``parallelize``, as the acoustic
+and vocoder steps do; the discriminators stay replicated.
 """
 
 from __future__ import annotations
@@ -99,7 +103,7 @@ def crop(mel, audio, starts, segment_frames: int, hop: int):
 def make_e2e_train_step(model, generator, config, am_optimizer: ScheduledAdam,
                         g_optimizer: ScheduledAdam, d_optimizer: ScheduledAdam, n_words: int,
                         segment_frames: int = 32, mpd=None, msd=None,
-                        adv_warmup_steps: int = 0, group=None):
+                        adv_warmup_steps: int = 0, group=None, model_group=None):
     """Returns ``train_step(state, batch, starts=None) -> (state, metrics)``;
     the modules and the state are updated in place.  ``starts`` (B,) are the
     crop's first frames, drawn from the state's generator when None.
@@ -109,7 +113,8 @@ def make_e2e_train_step(model, generator, config, am_optimizer: ScheduledAdam,
     ``train_step.mpd`` and ``train_step.msd``.  Metrics: ``total, generator,
     fm, mel, variance, duration, pitch, energy, postnet, ctc, bin,
     discriminator, mpd, msd``.  ``group``: the data group (module docstring);
-    ``starts`` are then this rank's rows of the global batch's."""
+    ``starts`` are then this rank's rows of the global batch's.  ``model_group``:
+    the model group of the parallelized acoustic model and generator."""
     if mpd is None or msd is None:
         mpd, msd = build_discriminators(next(model.parameters()).device)
     mel_params = MelParams.from_config(config.audio, loss=True)
@@ -144,15 +149,16 @@ def make_e2e_train_step(model, generator, config, am_optimizer: ScheduledAdam,
                               for v in gan_generator_losses(mpd, msd, y, y_hat, mel_params))
         adv_w = min(max(state.step / adv_warmup_steps, 0.0), 1.0) if adv_warmup_steps > 0 else 1.0
         total = adv_w * (g_adv + g_fm) + MEL_LOSS_WEIGHT * g_mel + var["total"]
-        grads = _grads(total, am_params + g_params, group)
-        am_optimizer.apply(am_params, grads[:len(am_params)], state.am_opt_state)
-        g_optimizer.apply(g_params, grads[len(am_params):], state.g_opt_state)
+        grads = _grads(total, am_params + g_params, group, model_group)
+        am_optimizer.apply(am_params, grads[:len(am_params)], state.am_opt_state, model_group)
+        g_optimizer.apply(g_params, grads[len(am_params):], state.g_opt_state, model_group)
 
         # the discriminators, on the pair from before the generator's update
         d_mpd, d_msd = (share(v, group)
                         for v in gan_discriminator_losses(mpd, msd, y, y_hat.detach()))
         d_total = d_mpd + d_msd
-        d_optimizer.apply(d_params, _grads(d_total, d_params, group), state.d_opt_state)
+        d_optimizer.apply(d_params, _grads(d_total, d_params, group, model_group),
+                          state.d_opt_state)
 
         state.step += 1
         zero = torch.zeros((), device=total.device)

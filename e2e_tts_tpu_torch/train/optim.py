@@ -24,6 +24,8 @@ from typing import Callable, List, Sequence
 
 import torch
 
+from ..parallel.tensor_parallel import global_norm
+
 
 def noam_schedule(encoder_hidden: int, warmup_steps: int, anneal_steps: Sequence[int] = (),
                   anneal_rate: float = 0.3) -> Callable[[int], float]:
@@ -72,11 +74,16 @@ class ScheduledAdam:
 
     @torch.no_grad()
     def apply(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
-              state: AdamState) -> torch.Tensor:
+              state: AdamState, model_group=None) -> torch.Tensor:
         """One update for all tensors at once (``torch._foreach_*``: a few
-        launches, not a dozen a tensor)."""
+        launches, not a dozen a tensor).  Over a ``model_group`` (tensor
+        parallelism) the parameters are this rank's shards and the clip's
+        norm is the whole model's (``tensor_parallel.global_norm``)."""
         params, grads = list(params), list(grads)
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if model_group is None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        else:
+            norm = global_norm(params, torch._foreach_norm(grads), model_group)
         # optax scales by max_norm / norm only where the norm reaches max_norm
         clip = torch.where(norm < self.max_norm, torch.ones_like(norm), self.max_norm / norm)
         g = torch._foreach_mul(grads, clip)

@@ -22,6 +22,11 @@ makes the step the global one over the ranks' rows: every loss is a mean
 over rows, so each rank's loss is its share (the mean over its rows over the
 group's size), the gradients of both updates are summed over the group
 before Adam, and the metrics are the global ones.
+
+``model_group`` (tensor parallelism, ``parallel/tensor_parallel``) trains a
+generator split by ``parallelize`` (``conv_pre`` and the upsampling
+convolutions on their output channels); MPD and MSD stay replicated, as JAX
+applies its rules to the generator's parameters only.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from ..models.vocoder import istft_to_audio
 from ..nn.discriminators import (build_discriminators, discriminator_loss, feature_loss,
                                  generator_adv_loss)
 from ..parallel.data_parallel import reduce_gradients, reduce_metrics, share
+from ..parallel.tensor_parallel import reduce_model_gradients
 from .optim import AdamState, ScheduledAdam
 
 MEL_LOSS_WEIGHT = 45.0  # HiFi-GAN's lambda_mel
@@ -95,23 +101,24 @@ def gan_discriminator_losses(mpd, msd, y, y_hat):
     return losses[0], losses[1]
 
 
-def _grads(loss, params, group=None):
+def _grads(loss, params, group=None, model_group=None):
     """d loss / d params, zeros where a parameter does not reach the loss,
-    summed over ``group``."""
+    made whole over ``model_group`` and summed over ``group``."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return reduce_gradients([torch.zeros_like(p) if g is None else g
-                             for p, g in zip(params, grads)], group)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    return reduce_gradients(reduce_model_gradients(params, grads, model_group), group)
 
 
 def make_vocoder_train_step(generator, config, g_optimizer: ScheduledAdam,
                             d_optimizer: ScheduledAdam, vocoder_kind: str = "hifigan",
-                            mpd=None, msd=None, group=None):
+                            mpd=None, msd=None, group=None, model_group=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``; the modules
     and the state are updated in place.  ``mpd`` / ``msd`` default to the
     reference widths on the generator's device (``build_discriminators``);
     the step keeps them as ``train_step.mpd`` and ``train_step.msd``.
     Metrics: ``d_total, d_mpd, d_msd, g_total, g_adv, g_fm, g_mel``.
-    ``group``: the data group (module docstring)."""
+    ``group``: the data group, ``model_group`` the model group (module
+    docstring)."""
     if vocoder_kind not in ("hifigan", "istft"):
         raise ValueError(f"unknown vocoder kind {vocoder_kind!r}")
     if mpd is None or msd is None:
@@ -135,13 +142,15 @@ def make_vocoder_train_step(generator, config, g_optimizer: ScheduledAdam,
         d_mpd, d_msd = (share(v, group)
                         for v in gan_discriminator_losses(mpd, msd, y, y_hat.detach()))
         d_total = d_mpd + d_msd
-        d_optimizer.apply(d_params, _grads(d_total, d_params, group), state.d_opt_state)
+        d_optimizer.apply(d_params, _grads(d_total, d_params, group, model_group),
+                          state.d_opt_state)
 
         # the generator, against the updated discriminators
         g_adv, g_fm, g_mel = (share(v, group)
                               for v in gan_generator_losses(mpd, msd, y, y_hat, mel_params))
         g_total = g_adv + g_fm + MEL_LOSS_WEIGHT * g_mel
-        g_optimizer.apply(g_params, _grads(g_total, g_params, group), state.g_opt_state)
+        g_optimizer.apply(g_params, _grads(g_total, g_params, group, model_group),
+                          state.g_opt_state, model_group)
 
         state.step += 1
         metrics = dict(d_total=d_total, d_mpd=d_mpd, d_msd=d_msd, g_total=g_total,

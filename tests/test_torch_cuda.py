@@ -10,8 +10,9 @@ default-width train step on a bucketed batch of it; the four other block
 families' encoders and decoders against the CPU, and the reformer's
 rotation table on the card; the router's ``vie_tiny`` request, the kNN
 voice-conversion match and the learned MOS scorer on the card against the
-CPU; a bfloat16 train step against the float64 oracle, and the folded
-HiFi-GAN tail against the generator.
+CPU; a bfloat16 train step against the float64 oracle, the folded
+HiFi-GAN tail against the generator, and the split eval forward of two
+tensor-parallel ranks sharing the card against the unsplit forward.
 
 Every test here is marked ``cuda`` and skips without a GPU, but one: the
 data entry points' ``device=None`` raising without a card runs on the CPU
@@ -940,3 +941,27 @@ def test_folded_vocoder_on_cuda_matches_the_generator(cuda):
     text = "xin chào việt nam, hôm nay trời đẹp quá"
     a, b = folded.synthesize(text), eng.synthesize(text)
     assert len(a) == len(b) and np.abs(a.astype(np.int32) - b).mean() < 1.0
+
+
+def test_split_eval_forward_on_two_ranks_sharing_the_card(cuda, tmp_path):
+    """Two gloo ranks on the card at (data 1, model 2)
+    (``tests/_torch_parallel_worker.py``): the default-width acoustic
+    model's eval forward with the decoder at T = 256, split over the ranks,
+    launches the flash kernel on each rank's local head ((B * 1, 256, 192)
+    in each of the 6 decoder layers), gives the unsplit forward's
+    durations, and its mel is within 1e-3 of the unsplit forward's on the
+    card."""
+    from _torch_parallel_worker import run_ranks
+
+    rng = np.random.RandomState(3)
+    lens = np.array([64, 41], np.int64)
+    texts = np.zeros((2, 64), np.int64)
+    for b, n in enumerate(lens):
+        texts[b, :n] = rng.randint(1, 100, n)
+    spec = {"device": "cuda", "tasks": ["forward"], "forward": dict(
+        speakers=np.zeros(2, np.int64), texts=texts, txt_lens=lens, T=256, model_parallel=2)}
+    for r in (out["forward"] for out in run_ranks(spec, str(tmp_path), 2, 900)):
+        assert r["wq_rows"] == 192 and r["launches"] == 6
+        assert r["flash_shapes"] == [(2, 256, 192)] * 6
+        assert torch.equal(r["split"]["durations"], r["single"]["durations"])
+        assert (r["split"]["mel"] - r["single"]["mel"]).abs().max().item() < 1e-3

@@ -20,9 +20,6 @@ the global batch statistics are what the match tests.  Dropout is off.
 """
 
 import os
-import socket
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +28,7 @@ import pytest
 import torch
 
 from _torch_one_thread import one_thread  # noqa: F401
+from _torch_parallel_worker import run_ranks
 from test_torch_e2e import _adam_bound
 from test_torch_engine import LONG
 from test_torch_e2e import _audio as _e2e_audio
@@ -57,42 +55,6 @@ VIE_TINY = os.path.join(ROOT, "assets", "bundles", "vie_tiny")
 WORLD = 2
 TIMEOUT_S = 240
 STATS_TOL = 1e-3
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def run_ranks(spec: dict, tmp, world: int = WORLD, timeout_s: float = TIMEOUT_S) -> list:
-    """Run the worker's tasks on ``world`` gloo ranks; each rank's results.
-    A rank that fails, or that has not finished within ``timeout_s``, fails
-    the caller (the ranks are killed)."""
-    inputs = os.path.join(tmp, "inputs.pt")
-    torch.save(spec, inputs)
-    port = _free_port()
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""),
-               OMP_NUM_THREADS="1")
-    for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
-                 "COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID"):
-        env.pop(name, None)
-    outs = [os.path.join(tmp, f"out_{r}.pt") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "_torch_parallel_worker.py"),
-                               inputs, str(r), str(world), str(port), outs[r]],
-                              cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-             for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout_s)[0].decode(errors="replace"))
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        pytest.fail(f"a rank did not finish within {timeout_s} s")
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r} failed:\n{logs[r][-4000:]}"
-    return [torch.load(o, weights_only=False) for o in outs]
 
 
 # --- the JAX side ----------------------------------------------------------------------------
@@ -156,7 +118,7 @@ def ranks(tmp_path_factory):
     spec["serve"] = dict(bundle=VIE_TINY, batch_size=8, texts=SERVE_TEXTS)
     spec["cli"] = _cli_inputs(tmp)
     spec["tasks"] += ["shard", "serve", "cli"]
-    return run_ranks(spec, tmp)
+    return run_ranks(spec, tmp, WORLD, TIMEOUT_S)
 
 
 def _vocoder_init():

@@ -1,0 +1,92 @@
+"""The generators: the same seed gives the same inputs, and each meets its
+mix file's stated distribution."""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+
+from port_bench import harness
+from port_bench.gen import corpus, schedule, text
+from port_bench.reference.serving_rules import request_sequences
+
+BIG = 2 ** 31 + 12345
+
+
+def _mix(name):
+    with open(os.path.join(harness.HERE, "traffic", f"{name}.json")) as f:
+        return json.load(f)
+
+
+def test_texts_repeat_per_seed_and_differ_across_seeds():
+    mix = _mix("mixed_open")
+    a, b = text.make_texts(mix, 50, BIG), text.make_texts(mix, 50, BIG)
+    assert a == b and a != text.make_texts(mix, 50, BIG + 1)
+    assert len(set(a)) == 50
+
+
+def test_mixed_lengths_follow_the_lognormal_and_the_set_is_the_seeds_own():
+    mix = _mix("mixed_open")
+    n = 400
+    texts = text.make_texts(mix, n, BIG)
+    sizes = np.array([len(t) for t in texts])
+    spec = mix["length"]
+    # each text is cut at the last syllable that fits its drawn length
+    assert sizes.min() >= spec["min"] - 7 and sizes.max() <= spec["max"]
+    assert abs(np.median(sizes) - spec["median"]) <= 0.06 * spec["median"]
+    assert abs(np.std(np.log(sizes)) - spec["sigma"]) < 0.08
+    other = sorted(len(t) for t in text.make_texts(mix, n, BIG + 7))
+    # the same drawn sizes, reordered: equal to within the syllable each is cut at
+    assert np.abs(np.array(other) - np.sort(sizes)).max() <= 7
+    assert all("," in t for t in texts if len(t) > 80)
+
+
+def test_prompts_of_two_to_eight_syllables():
+    mix = {"length": {"dist": "uniform", "unit": "syllables", "min": 2, "max": 8}, "speakers": 4}
+    texts = text.make_texts(mix, 200, BIG)
+    counts = [len(t.split()) for t in texts]
+    assert min(counts) == 2 and max(counts) == 8
+    assert text.speakers_of(mix, 200, BIG) == text.speakers_of(mix, 200, BIG)
+    assert set(text.speakers_of(mix, 200, BIG)) == set(range(mix["speakers"]))
+
+
+def test_documents_chunk_into_rows_of_the_engines_budget():
+    mix = _mix("longform_closed")
+    docs = text.make_texts(mix, 6, BIG)
+    for d in docs:
+        assert 1500 <= len(d) <= 4000
+        rows = request_sequences(d)
+        assert 5 <= len(rows) <= 15
+
+
+def test_poisson_schedule_has_the_rate_and_repeats_per_seed():
+    due = schedule.poisson_due_times(20.0, 30.0, BIG)
+    assert len(due) == 600 and np.all(np.diff(due) >= 0) and due[0] == 0 and due[-1] < 30
+    assert np.array_equal(due, schedule.poisson_due_times(20.0, 30.0, BIG))
+    gaps = np.diff(due)
+    assert abs(gaps.mean() - 1 / 20) < 0.005 and abs(gaps.std() / gaps.mean() - 1) < 0.15
+    other = np.diff(schedule.poisson_due_times(20.0, 30.0, BIG + 1))
+    assert not np.array_equal(gaps, other)
+    # the same gaps on every seed, in another order (the first gap of each is
+    # the one before its first arrival, left out of the differences)
+    assert np.abs(np.sort(gaps)[:500] - np.sort(other)[:500]).max() < 0.02
+
+
+def test_corpus_lengths_and_files(tmp_path):
+    mix = dict(_mix("train_ljs_lengths"), utterances=64)
+    with open(os.path.join(harness.HERE, "configs", "fs2_hifigan_v1.json")) as f:
+        config = json.load(f)["config"]
+    recs = corpus.write_workdir(str(tmp_path), mix, config, BIG)
+    frames = np.array([r["frames"] for r in recs])
+    assert frames.min() >= 86 and frames.max() <= 862
+    assert abs(frames.mean() * 256 / 22050 - 6.5) < 0.3  # LJSpeech's mean, ~6.5 s
+    again = corpus.write_workdir(str(tmp_path / "b"), mix, config, BIG)
+    assert [r["phonemes"] for r in recs] == [r["phonemes"] for r in again]
+    per = [r["frames"] / len(r["phonemes"]) for r in recs]
+    assert 5.5 < np.mean(per) < 10.5
+    mel = np.load(tmp_path / "corpus" / "mels" / f"{recs[0]['id']}.npy")
+    assert mel.shape == (80, recs[0]["frames"])
+    with open(tmp_path / "file_list.txt") as f:
+        assert len(f.read().strip().splitlines()) == 64

@@ -13,9 +13,11 @@ from __future__ import annotations
 
 import os
 from statistics import NormalDist
-from typing import List
+from typing import List, Optional
 
 import numpy as np
+
+from .schedule import dealt
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -30,9 +32,11 @@ def _stratified(n: int, ppf) -> np.ndarray:
     return np.array([ppf((i + 0.5) / n) for i in range(n)])
 
 
-def lengths(spec: dict, n: int, rng: np.random.Generator) -> np.ndarray:
+def lengths(spec: dict, n: int, rng: np.random.Generator,
+            slice_requests: Optional[int] = None) -> np.ndarray:
     """n integer lengths (characters, or syllables for ``unit: syllables``)
-    from a mix's ``length`` spec, in an order drawn from ``rng``:
+    from a mix's ``length`` spec, in an order drawn from ``rng`` (dealt over
+    slices of ``slice_requests``, where given; ``schedule.dealt``):
     ``{"dist": "lognormal", "median": m, "sigma": s, "min": a, "max": b}`` or
     ``{"dist": "uniform", "min": a, "max": b}``."""
     lo, hi = spec["min"], spec["max"]
@@ -44,7 +48,7 @@ def lengths(spec: dict, n: int, rng: np.random.Generator) -> np.ndarray:
     else:
         raise ValueError(f"unknown length distribution {spec['dist']!r}")
     vals = np.clip(np.floor(vals), lo, hi).astype(int)
-    return vals[rng.permutation(n)]
+    return vals[dealt(n, slice_requests, rng)]
 
 
 class TextMaker:
@@ -103,11 +107,12 @@ class TextMaker:
 def make_texts(mix: dict, n: int, seed: int) -> List[str]:
     """The n texts of a serving mix for ``seed``: ``mix["length"]`` gives
     their lengths (``unit`` "chars" or "syllables"), ``mix["sentence_syllables"]``
-    the sentences' lengths."""
+    the sentences' lengths, ``mix["slice_requests"]`` the slices they are
+    dealt over."""
     rng = np.random.default_rng([seed, 1])
     spec = mix["length"]
     maker = TextMaker(rng, tuple(mix.get("sentence_syllables", (6, 20))))
-    sizes = lengths(spec, n, rng)
+    sizes = lengths(spec, n, rng, mix.get("slice_requests"))
     if spec.get("unit", "chars") == "syllables":
         return [maker.text_of_syllables(int(k)) for k in sizes]
     return [maker.text_of_chars(int(k)) for k in sizes]

@@ -90,3 +90,32 @@ def test_corpus_lengths_and_files(tmp_path):
     assert mel.shape == (80, recs[0]["frames"])
     with open(tmp_path / "file_list.txt") as f:
         assert len(f.read().strip().splitlines()) == 64
+
+
+
+def test_sliced_mix_deals_each_length_and_gap_stratum_over_every_slice():
+    mix = _mix("mixed_open")
+    m, spec = mix["slice_requests"], mix["length"]
+    n = int(round(mix["rate"] * 51))
+    k = -(-n // m)
+    whole = n // k  # strata of k ranks; the last, of n % k, is shorter
+    plain = text.lengths(spec, n, np.random.default_rng([BIG, 1]))
+    for seed in (BIG, BIG + 1):
+        for stream, values in ((1, text.lengths(spec, n, np.random.default_rng([seed, 1]), m)),
+                               (3, np.diff(schedule.poisson_due_times(mix["rate"], 51.0, seed, m)))):
+            slices = schedule.dealt_slices(n, m, np.random.default_rng([seed, stream]))
+            order = np.concatenate(slices)
+            assert np.array_equal(order, schedule.dealt(n, m, np.random.default_rng([seed, stream])))
+            assert sorted(order) == list(range(n)) and len(slices) == k
+            for ranks in slices:
+                got = np.bincount(ranks // k, minlength=whole + 1)
+                assert got[:whole].tolist() == [1] * whole and got[whole] <= 1
+            # what the mix's requests get is the sorted values in that order
+            if stream == 1:
+                assert np.array_equal(values, np.sort(plain)[order])
+            else:  # the gaps between arrivals: the first is the one before the window
+                gaps = -np.log1p(-(np.arange(n) + 0.5) / n) / mix["rate"]
+                assert np.allclose(values, (gaps[order] * 51.0 / gaps.sum())[1:])
+    a = text.lengths(spec, n, np.random.default_rng([BIG, 1]), m)
+    b = text.lengths(spec, n, np.random.default_rng([BIG + 1, 1]), m)
+    assert sorted(a) == sorted(b) == sorted(plain) and list(a) != list(b)

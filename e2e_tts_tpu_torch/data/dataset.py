@@ -7,7 +7,11 @@ JAX package's, and the batchers draw from ``np.random.RandomState`` as it
 does, so the order, the buckets and the vocoder crops equal the JAX
 package's batch for batch.  The batchers take ``device=`` (CUDA unless the
 caller passes another; ``device=None`` without CUDA raises when the batcher
-is made, before any batch).
+is made, before any batch).  The acoustic batcher's work is traced
+(``utils/tracing``): ``data.batch`` from resuming the batcher to its next
+batch, and inside it ``data.load`` (an utterance's features),
+``data.collate`` (padding and the prior) with ``data.prior``, and
+``data.copy`` (``AcousticBatch.from_numpy``).
 
 Deviation from the reference noted: the reference computes the UV mask from
 *normalized* f0 == 0 (utils.py:172-173), which is only correct when the mean
@@ -28,6 +32,7 @@ from ..device import resolve_device
 from ..text import phonemes_to_sequence
 from ..train.acoustic_step import AcousticBatch
 from ..train.vocoder_step import VocoderBatch
+from ..utils import tracing
 from .features import load_utterance_features
 
 TEXT_BUCKETS = (32, 64, 96, 128, 192, 256)
@@ -194,14 +199,21 @@ def _acoustic_batches(dataset, batch_size, shuffle, seed, drop_last, with_paths,
             # fabricating dummy rows (txt_lens=1 zero-mel rows would feed
             # invented targets into every epoch-tail gradient)
             utts = [utts[i % len(utts)] for i in range(batch_size)]
-        batch = AcousticBatch.from_numpy(_collate(utts, key, batch_size, n_mels, dataset), device)
+        with tracing.span("data.collate"):
+            arrays = _collate(utts, key, batch_size, n_mels, dataset)
+        batch = AcousticBatch.from_numpy(arrays, device)
         if with_paths:
             return batch, [u.wav_path for u in utts]
         return batch
 
+    def begin():  # closed before each yield, so that it holds no consumer's time
+        return tracing.start("data.batch", batch=tracing.new_id() if tracing.enabled() else None)
+
     groups: Dict[Tuple[int, int], List[Utterance]] = {}
+    made = begin()
     for i in order:
-        utt = dataset[int(i)]
+        with tracing.span("data.load"):
+            utt = dataset[int(i)]
         if (
             len(utt.text_ids) > min(dataset.max_seq_len, TEXT_BUCKETS[-1])
             or utt.mel.shape[0] > MEL_BUCKETS[-1]
@@ -211,11 +223,18 @@ def _acoustic_batches(dataset, batch_size, shuffle, seed, drop_last, with_paths,
         key = (_bucket(len(utt.text_ids), TEXT_BUCKETS), _bucket(utt.mel.shape[0], MEL_BUCKETS))
         groups.setdefault(key, []).append(utt)
         if len(groups[key]) == batch_size:
-            yield emit(groups.pop(key), key)
+            batch = emit(groups.pop(key), key)
+            made.close()
+            yield batch
+            made = begin()
 
     if not drop_last:
         for key, utts in groups.items():
-            yield emit(utts, key)
+            batch = emit(utts, key)
+            made.close()
+            yield batch
+            made = begin()
+    made.close()
 
 
 def _collate(
@@ -252,7 +271,8 @@ def _collate(
         if u.durations is not None:
             duration_target[row, :l] = u.durations[:l]
         else:
-            attn_prior[row, :t, :l] = dataset.attn_prior(l, t)
+            with tracing.span("data.prior"):
+                attn_prior[row, :t, :l] = dataset.attn_prior(l, t)
     return [speakers, texts, txt_lens, word_ids, mel, mel_lens, attn_prior, duration_target,
             f0, uv, pitch, energy]
 

@@ -76,6 +76,7 @@ from ..nn.common import compute_dtype
 from ..nn.transformer import MultiHeadAttention
 from ..nn.variance import FeatureStats
 from ..text.frontends import get_frontend
+from ..utils import tracing
 from .chunking import arrange_text
 
 TEXT_BUCKETS = (32, 64, 96, 128, 192, 256, 320)
@@ -89,6 +90,16 @@ FRAMES_PER_PHONEME_EST = 8
 # batches dispatched ahead of the host drain; the JAX engine's depth, kept
 # because the bucket estimator is updated at drain time
 PIPELINE_DEPTH = 4
+# the (stage, rows, bucket) shapes the engines of this process have run: a
+# new one needs cuDNN plans and allocator blocks of its own (its first run
+# is counted as ``engine.cold_shape``)
+_SHAPES_RUN: set = set()
+
+
+def _note_shape(stage: int, rows: int, bucket: int) -> None:
+    if (stage, rows, bucket) not in _SHAPES_RUN:
+        _SHAPES_RUN.add((stage, rows, bucket))
+        tracing.count("engine.cold_shape")
 
 
 def _split_long_sequence(seq: np.ndarray) -> List[np.ndarray]:
@@ -398,6 +409,7 @@ class SynthesisEngine:
         """Stage 2 + vocoder at mel bucket T, on the device (split over the
         replicas): the waveform in the wire dtype (``_encode_transfer``)."""
         self.stage2_shapes.add((int(x.shape[1]), T))
+        _note_shape(2, int(x.shape[0]), T)
 
         def run(rep, x, durations):
             mel, mel_lens = rep[0].synthesize_stage2(x, durations, max_mel_len=T, p_control=p,
@@ -425,13 +437,16 @@ class SynthesisEngine:
         silence_distance: float = 0.5,
     ) -> np.ndarray:
         """Full text -> int16 waveform (chunking + batching + stitching)."""
-        seqs, spk = self.prepare_request(text, speaker_id)
+        rid = tracing.new_id() if tracing.enabled() else None
+        with tracing.span("request.frontend", request=rid):
+            seqs, spk = self.prepare_request(text, speaker_id)
         if not seqs:
             return np.zeros(0, np.int16)
         audios = self._synthesize_sequences(
             seqs, spk, pitch_control, energy_control, duration_control
         )
-        return self._combine(audios, int(silence_distance * self.sample_rate))
+        with tracing.span("request.stitch", request=rid):
+            return self._combine(audios, int(silence_distance * self.sample_rate))
 
     def prepare_request(self, text, speaker_id: Optional[str] = None):
         """(text, speaker_id) -> (chunk sequences, speaker index)."""
@@ -454,26 +469,31 @@ class SynthesisEngine:
 
     def _dispatch(self, L, batch_idx, seqs, spk_of, p, e, d):
         """Stage 1 and stage 2 at the estimated bucket for one batch.  Nothing
-        here waits for the device."""
-        B = self._row_bucket(len(batch_idx))
-        texts = np.zeros((B, L), np.int64)
-        lens = np.ones((B,), np.int64)  # dummy rows: length 1
-        speakers = np.zeros((B,), np.int64)
-        for row, i in enumerate(batch_idx):
-            texts[row, : len(seqs[i])] = seqs[i]
-            lens[row] = len(seqs[i])
-            speakers[row] = spk_of[i]
-        Lmax = int(lens.max())
-        T_est = _mel_bucket(int(self._fpp * 1.2 * Lmax * max(d, 1.0)))
-        mine = self._local_rows(B) if self._group is not None else slice(0, B)
-        put = lambda a: torch.from_numpy(a[mine]).to(self.device)  # noqa: E731
-        self.stage1_shapes.add(L)
-        x, durations = self._stage1(put(speakers), put(texts), put(lens), p, e, d)
-        codes, mel_lens = self._stage2(x, durations, T_est, p, e)
-        totals = durations.sum(-1)
-        if self._group is not None:
-            codes, mel_lens, totals = self._gather(codes, mel_lens, totals)
-        return batch_idx, Lmax, T_est, x, durations, codes, mel_lens, totals
+        here waits for the device but the copies of its inputs.  The last
+        item is the batch id of its spans (None while tracing is off)."""
+        bid = tracing.new_id() if tracing.enabled() else None
+        with tracing.span("engine.pack", batch=bid):
+            B = self._row_bucket(len(batch_idx))
+            texts = np.zeros((B, L), np.int64)
+            lens = np.ones((B,), np.int64)  # dummy rows: length 1
+            speakers = np.zeros((B,), np.int64)
+            for row, i in enumerate(batch_idx):
+                texts[row, : len(seqs[i])] = seqs[i]
+                lens[row] = len(seqs[i])
+                speakers[row] = spk_of[i]
+            Lmax = int(lens.max())
+            T_est = _mel_bucket(int(self._fpp * 1.2 * Lmax * max(d, 1.0)))
+            mine = self._local_rows(B) if self._group is not None else slice(0, B)
+            inputs = [torch.from_numpy(a[mine]).to(self.device) for a in (speakers, texts, lens)]
+        with tracing.span("engine.launch", batch=bid):
+            self.stage1_shapes.add(L)
+            _note_shape(1, int(inputs[0].shape[0]), L)
+            x, durations = self._stage1(*inputs, p, e, d)
+            codes, mel_lens = self._stage2(x, durations, T_est, p, e)
+            totals = durations.sum(-1)
+            if self._group is not None:
+                codes, mel_lens, totals = self._gather(codes, mel_lens, totals)
+        return batch_idx, Lmax, T_est, x, durations, codes, mel_lens, totals, bid
 
     def _synthesize_sequences(self, seqs, speaker, p: float, e: float, d: float
                               ) -> List[np.ndarray]:
@@ -516,14 +536,16 @@ class SynthesisEngine:
             refill()
             window = list(pending)
             pending.clear()
-            fetched = [(self._decode_transfer(codes.cpu().numpy()), mel_lens.cpu().numpy(),
-                        totals.cpu().numpy())
-                       for (_, _, _, _, _, codes, mel_lens, totals) in window]
+            with tracing.span("engine.fetch", tracing.DEVICE_WAIT):
+                fetched = [(self._decode_transfer(codes.cpu().numpy()), mel_lens.cpu().numpy(),
+                            totals.cpu().numpy())
+                           for (_, _, _, _, _, codes, mel_lens, totals, _) in window]
             refill()
-            for (batch_idx, Lmax, T_est, x, durations, *_), (codes, mel_lens, total) in zip(
+            for (batch_idx, Lmax, T_est, x, durations, *_, bid), (codes, mel_lens, total) in zip(
                     window, fetched):
-                self._drain(batch_idx, Lmax, T_est, x, durations, codes, mel_lens,
-                            total[: len(batch_idx)], seqs, spk_of, p, e, d, results)
+                with tracing.span("engine.drain", batch=bid):
+                    self._drain(batch_idx, Lmax, T_est, x, durations, codes, mel_lens,
+                                total[: len(batch_idx)], seqs, spk_of, p, e, d, results)
         return results
 
     def _drain(self, batch_idx, Lmax, T_est, x, durations, codes, mel_lens, total,
@@ -546,8 +568,10 @@ class SynthesisEngine:
             else:
                 rows = torch.tensor(refit, device=self.device)
                 c, lens = self._stage2(x[rows], durations[rows], T, p, e)
-            re_codes = dict(zip(refit, self._decode_transfer(c.cpu().numpy())))
-            re_lens = dict(zip(refit, lens.cpu().numpy()))
+            tracing.count("engine.rerender_rows", len(refit))
+            with tracing.span("engine.fetch", tracing.DEVICE_WAIT):
+                re_codes = dict(zip(refit, self._decode_transfer(c.cpu().numpy())))
+                re_lens = dict(zip(refit, lens.cpu().numpy()))
         for row, i in enumerate(batch_idx):
             total_row = int(total[row])
             if total_row <= T_est:

@@ -20,6 +20,12 @@ Starvation protection: a request that has waited longer than
 The collector thread launches the engine's kernels, so it runs them under
 ``torch.no_grad()`` (grad mode is per thread).  ``close()`` serves what is
 pending and joins the thread.
+
+Each request's phases are spans of ``utils/tracing`` under its request id
+(``request.frontend``, ``request.queued``, ``request.stitch``,
+``request.resolve``), and each cycle's (``queue.collect``, ``queue.cycle``
+and the engine's spans inside it) under its cycle id, which is
+``n_cycles`` after the cycle began; they record while a profiler does.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 
 @dataclass
 class _Request:
@@ -43,6 +51,8 @@ class _Request:
     gap: int
     priority: int = 0
     t_enq: float = 0.0
+    rid: int = 0  # the request id of its spans
+    t_enq_ns: int = 0  # time.time_ns() at enqueue while tracing records, else 0
     future: Future = field(default_factory=Future)
 
 
@@ -93,13 +103,15 @@ class BatchingServer:
             ),
             gap=int(silence_distance * self.engine.sample_rate),
             priority=int(priority),
+            rid=tracing.new_id(),
         )
         try:
             # host-side text work happens on the caller's thread, so the
             # collector thread only does batching + device dispatch
-            req.seqs, req.speaker = self.engine.prepare_request(
-                text, speaker_id
-            )
+            with tracing.span("request.frontend", request=req.rid):
+                req.seqs, req.speaker = self.engine.prepare_request(
+                    text, speaker_id
+                )
         except Exception as exc:  # unknown speaker, bad text
             req.future.set_exception(exc)
             return req.future
@@ -115,6 +127,8 @@ class BatchingServer:
                 )
                 return req.future
             req.t_enq = time.monotonic()
+            if tracing.enabled():
+                req.t_enq_ns = time.time_ns()
             self._lanes.setdefault(req.priority, deque()).append(req)
             self._pending += 1
             self._cv.notify()
@@ -161,6 +175,9 @@ class BatchingServer:
             # drop empty lanes so the min/max scans stay O(live priorities)
             del self._lanes[req.priority]
         self._pending -= 1
+        if req.t_enq_ns:
+            tracing.record("request.queued", req.t_enq_ns, time.time_ns(),
+                           request=req.rid, cycle=self.n_cycles + 1)
         return req
 
     def _collect(self) -> List[_Request]:
@@ -173,6 +190,7 @@ class BatchingServer:
                 self._cv.wait()
             now = time.monotonic()
             batch = [self._pop_locked(now)]
+            collect = tracing.start("queue.collect", tracing.WAIT, cycle=self.n_cycles + 1)
             n_seqs = len(batch[0].seqs)
             deadline = now + self.max_wait
             while n_seqs < self.max_batch:
@@ -189,6 +207,7 @@ class BatchingServer:
                 req = self._pop_locked(time.monotonic())
                 batch.append(req)
                 n_seqs += len(req.seqs)
+        collect.close()
         return batch
 
     def _worker(self):
@@ -201,6 +220,9 @@ class BatchingServer:
             if not batch:
                 return
             self.n_cycles += 1
+            cycle = tracing.start("queue.cycle", cycle=self.n_cycles)
+            if tracing.enabled():
+                tracing.count("queue.rows", sum(len(r.seqs) for r in batch))
             # group by control scalars (one dispatch group per distinct
             # (p, e, d)); dispatch the most urgent group first
             groups: Dict[Tuple[float, float, float], List[_Request]] = {}
@@ -230,9 +252,11 @@ class BatchingServer:
                     per_req[ri].append(audio)
                 for req, parts in zip(reqs, per_req):
                     try:
-                        req.future.set_result(
-                            self.engine._combine(parts, req.gap)
-                        )
+                        with tracing.span("request.stitch", request=req.rid):
+                            audio = self.engine._combine(parts, req.gap)
+                        with tracing.span("request.resolve", request=req.rid):
+                            req.future.set_result(audio)
                     except Exception as exc:
                         if not req.future.done():
                             req.future.set_exception(exc)
+            cycle.close()

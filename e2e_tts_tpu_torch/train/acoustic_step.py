@@ -25,7 +25,9 @@ then today's exactly).  Each rank passes its rows of the global batch
 batch's, the gradients are summed over the group before clipping and Adam,
 the model's BatchNorms take the global batch's statistics, and the metrics
 are the global ones, so every rank holds the parameters of JAX's sharded
-step.  ``init_train_state(..., group=)`` seeds each rank's dropout
+step.  The step's phases are spans of ``utils/tracing``: ``step.forward``
+(the model and its losses), ``step.backward``, ``step.reduce`` (with a data
+or model group) and ``step.optimizer``.  ``init_train_state(..., group=)`` seeds each rank's dropout
 generator with the seed plus its rank in the data group.
 
 Tensor parallelism: a model split by ``parallel/tensor_parallel.parallelize``
@@ -57,6 +59,7 @@ from ..nn.variance import FeatureStats
 from ..parallel.data_parallel import (rank_seed, reduce_gradients, reduce_metrics,
                                       set_batchnorm_group)
 from ..parallel.tensor_parallel import reduce_model_gradients
+from ..utils import tracing
 from .optim import AdamState, ScheduledAdam
 
 
@@ -79,13 +82,16 @@ class AcousticBatch(NamedTuple):
     @classmethod
     def from_numpy(cls, arrays, device) -> "AcousticBatch":
         """From numpy arrays (an ``AcousticBatch`` of them, or any sequence of
-        the 12 in order): integers as int64, the rest float32, on ``device``."""
+        the 12 in order): integers as int64, the rest float32, on ``device``
+        (a ``data.copy`` span: from pageable memory the copy waits behind the
+        work queued on the card)."""
         def move(a):
             t = torch.as_tensor(a)
             t = t.long() if not t.is_floating_point() else t.float()
             return t.to(device)
 
-        return cls(*(move(a) for a in arrays))
+        with tracing.span("data.copy", tracing.DEVICE_WAIT):
+            return cls(*(move(a) for a in arrays))
 
 
 def build_acoustic_model(config, n_symbols: int, n_speakers: int,
@@ -173,6 +179,7 @@ def make_train_step(model: FastSpeech2, config, optimizer: ScheduledAdam, n_word
     params = list(model.parameters())
     if group is not None:
         set_batchnorm_group(model, group)
+    grouped = group is not None or model_group is not None
 
     def train_step(state: AcousticTrainState, batch: AcousticBatch):
         model.train()
@@ -185,8 +192,10 @@ def make_train_step(model: FastSpeech2, config, optimizer: ScheduledAdam, n_word
         sums: Dict[str, torch.Tensor] = {}
         for i in range(grad_accum):
             mb = AcousticBatch(*(t[i * micro:(i + 1) * micro] for t in batch))
-            losses = _losses(model, config, mb, state.step, n_words, state.rng, group)
-            losses["total"].backward()  # gradients add up in p.grad
+            with tracing.span("step.forward"):
+                losses = _losses(model, config, mb, state.step, n_words, state.rng, group)
+            with tracing.span("step.backward"):
+                losses["total"].backward()  # gradients add up in p.grad
             for k, v in losses.items():
                 v = v.detach()
                 sums[k] = v if k not in sums else sums[k] + v
@@ -194,9 +203,11 @@ def make_train_step(model: FastSpeech2, config, optimizer: ScheduledAdam, n_word
         if grad_accum > 1:
             grads = [g * (1.0 / grad_accum) for g in grads]
             sums = {k: v * (1.0 / grad_accum) for k, v in sums.items()}
-        grads = reduce_gradients(reduce_model_gradients(params, grads, model_group), group)
-        sums = reduce_metrics(sums, group)
-        sums["grad_norm"] = optimizer.apply(params, grads, state.opt_state, model_group)
+        with tracing.span("step.reduce") if grouped else tracing.NOOP:
+            grads = reduce_gradients(reduce_model_gradients(params, grads, model_group), group)
+            sums = reduce_metrics(sums, group)
+        with tracing.span("step.optimizer"):
+            sums["grad_norm"] = optimizer.apply(params, grads, state.opt_state, model_group)
         for p in params:
             p.grad = None
         state.step += 1

@@ -38,7 +38,10 @@ Bundles are the format both packages serve.
 
 ``main(argv, on_step=None)``: ``on_step(step, metrics)`` is called after
 each train step of ``acoustic``, ``vocoder`` and ``e2e``, before the
-step's logging, checkpoint and validation (for instrumentation).
+step's logging, checkpoint and validation (for instrumentation).  In
+``acoustic`` the logging (its ``float`` reads of the step's metrics wait
+for the card) and the checkpoints with validation are ``train.log`` and
+``train.checkpoint`` spans of ``utils/tracing``.
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from ..utils import tracing
 
 LANGS = ["vie", "eng", "mya"]
 _WAV_CACHE_MAX = 2048  # e2e: wavs kept in host memory before the cache is cleared
@@ -278,18 +283,20 @@ def cmd_acoustic(args, on_step: Optional[Callable] = None):
             if on_step is not None:
                 on_step(step, metrics)
             if step % config.train.log_step == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                logger.log(step, m, lr=optimizer.schedule(step))
-                _say(f"[acoustic] step {step} total={m['total']:.4f} mel={m['mel']:.4f} "
-                     f"({time.time() - t0:.0f}s)")
+                with tracing.span("train.log"):
+                    m = {k: float(v) for k, v in metrics.items()}
+                    logger.log(step, m, lr=optimizer.schedule(step))
+                    _say(f"[acoustic] step {step} total={m['total']:.4f} mel={m['mel']:.4f} "
+                         f"({time.time() - t0:.0f}s)")
             if step % args.ckpt_every == 0:
-                ckpt.save(step, state)
-                logger.log_params(step, model)
-                if valid_entries:
-                    vm = run_validation()
-                    logger.log(step, vm)
-                    _say(f"[acoustic] step {step} valid_total="
-                         f"{vm.get('valid_total', float('nan')):.4f}")
+                with tracing.span("train.checkpoint"):
+                    ckpt.save(step, state)
+                    logger.log_params(step, model)
+                    if valid_entries:
+                        vm = run_validation()
+                        logger.log(step, vm)
+                        _say(f"[acoustic] step {step} valid_total="
+                             f"{vm.get('valid_total', float('nan')):.4f}")
             if step >= args.steps:
                 break
         epoch += 1

@@ -4,6 +4,8 @@
 Host-side batch assembly (feature .npy loads, padding, the prior, the copy
 to the device) runs in a worker thread so it overlaps the device step, as
 the reference's DataLoader worker does (dataloader.py num_workers=1).
+The consumer's wait for each item is a ``train.batch_wait`` span
+(``utils/tracing``).
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Iterable, Iterator, TypeVar
+
+from . import tracing
 
 T = TypeVar("T")
 
@@ -36,7 +40,8 @@ def prefetch_iterator(iterable: Iterable[T], size: int = 2) -> Iterator[T]:
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with tracing.span("train.batch_wait", tracing.WAIT):
+            item = q.get()
         if item is _SENTINEL:
             break
         yield item

@@ -220,7 +220,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
 Each path that launches kernels (phases 5, 8, 9, 10, 11, 12, 14, 15, 16, 18,
 19, 20, 21, 22, 23 and 24) is driven with the launch counts set to 0 just before it and read
 just after, and each kernel is held against its plain version on the first
-inputs that path gave it (``recorded_inputs``, ``recorded_train_inputs``).  The kernels' JSON line
+inputs that path gave it (``recorded_inputs``, ``recorded_train_inputs``); a serving path
+runs with its CUDA graphs live, and each module call that replayed one is run again eagerly
+on its inputs, to the same bits, which also gives the kernel the replay's inputs.  The kernels' JSON line
 counts the serving run's launches of flash attention (phases 5, 21, 22, 23 and 24's of
 the float32 form, phase 16's batch-8 run's and phase 22's bfloat16 requests' of
 each 16-bit kernel) and phases 12, 14, 18, 19, 20, 22, 23 and 24's of the training
@@ -771,22 +773,69 @@ def recorded_inputs():
     """Set the launch counts (every kernel's) to 0 and route the model's kernel
     calls, from any thread, through a hook that keeps a copy of the first
     CUDA inputs at each shape; yields those inputs by shape, for
-    ``check_serving_inputs``."""
+    ``check_serving_inputs``.  The block runs the main path, the engines'
+    CUDA graphs live, so the counts read after it are that run's (a replay
+    adds its capture's launches).  A replay calls no hook, so the first
+    replayed call of each graphed module at each shape is kept, inputs and
+    outputs; after the block each runs again eagerly (``graphs._eager``)
+    through the kernel's hook, which keeps its inputs, and its outputs must
+    equal the replay's bit for bit.  The counts are left at the block's."""
     import e2e_tts_tpu_torch.nn.transformer as transformer
     from e2e_tts_tpu_torch.kernels.flash_attention import flash_attention
+    from e2e_tts_tpu_torch.serve import graphs
 
-    seen, lock = {}, threading.Lock()
+    seen, replayed, lock, local = {}, {}, threading.Lock(), threading.local()
+    replay = graphs._Graph.replay
 
     def recording(q, k, v, kv_lens):
         with lock:
-            if q.is_cuda and tuple(q.shape) not in seen:
+            if (q.is_cuda and tuple(q.shape) not in seen
+                    and not torch.cuda.is_current_stream_capturing()):
                 seen[tuple(q.shape)] = tuple(t.clone() for t in (q, k, v, kv_lens))
         return flash_attention(q, k, v, kv_lens)
 
+    def marked(graph, tensors):
+        out = replay(graph, tensors)
+        local.replayed = True
+        return out
+
+    def keep(module, args, out):  # every module's call: keeps the replayed ones
+        if not getattr(local, "replayed", False):
+            return
+        local.replayed = False
+        key = (module, tuple((a.shape, a.dtype) if isinstance(a, torch.Tensor) else a
+                             for a in args))
+        with lock:
+            if key not in replayed:
+                replayed[key] = (tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                       for a in args),
+                                 tuple(o.clone() for o in graphs._outputs(out)))
+
     transformer.flash_attention = recording
+    graphs._Graph.replay = marked
+    hook = torch.nn.modules.module.register_module_forward_hook(keep)
     flash_attention.launches = flash_attention.launches_16 = flash_attention.launches_16_sm90 = 0
     try:
-        yield seen
+        try:
+            yield seen
+        finally:
+            hook.remove()
+            graphs._Graph.replay = replay
+        counts = (flash_attention.launches, flash_attention.launches_16,
+                  flash_attention.launches_16_sm90)
+        with torch.no_grad(), graphs._eager():
+            for (module, shapes), (args, outs) in replayed.items():
+                with torch.cuda.device(next(module.parameters()).device):
+                    want = graphs._outputs(module(*args))
+                for o, w in zip(outs, want):
+                    if not torch.equal(o, w):
+                        diff = float((o.double() - w.double()).abs().max())
+                        raise AssertionError(f"{type(module).__name__} at {shapes}: the replay "
+                                             f"differs from eager by up to {diff:.3g}")
+        log(f"graphs: {len(replayed)} replayed module calls (one a module and shape) equal "
+            f"eager on their inputs")
+        (flash_attention.launches, flash_attention.launches_16,
+         flash_attention.launches_16_sm90) = counts
     finally:
         transformer.flash_attention = flash_attention
 

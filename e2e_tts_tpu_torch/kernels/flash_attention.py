@@ -50,10 +50,16 @@ float16, the three alike: any other dtype, mixed dtypes, a non-contiguous
 input or a CPU/CUDA mix raises.  Padded query rows (t >= kv_len) are
 meaningless but finite (zeros at least in every 16-row group past kv_len),
 and a head with kv_len = 0 comes out 0.
+
+A launch made while a CUDA graph captures (``serve/graphs.py``) runs at
+each replay and not then: inside ``tallied_launches`` a thread's launches
+go to the tally it yields, and the graph adds the tally to the counts at
+each replay (``count_launches``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 
@@ -104,11 +110,36 @@ def _kernel():
         return _bound
 
 
+_TALLY = threading.local()  # .counts: the tally of a capture on this thread, or None
+
+
 def _count_launch(counter: str = "launches") -> None:
     """One more launch in ``flash_attention.<counter>`` (a locked add: ``+=``
-    on an attribute is not atomic across threads)."""
+    on an attribute is not atomic across threads), or in the tally of the
+    thread's capture."""
+    tally = getattr(_TALLY, "counts", None)
+    if tally is not None:
+        tally[counter] = tally.get(counter, 0) + 1
+        return
+    count_launches({counter: 1})
+
+
+def count_launches(tally: dict) -> None:
+    """Add ``tally`` ({counter: launches}) to the counts."""
     with _LOCK:
-        setattr(flash_attention, counter, getattr(flash_attention, counter) + 1)
+        for counter, n in tally.items():
+            setattr(flash_attention, counter, getattr(flash_attention, counter) + n)
+
+
+@contextlib.contextmanager
+def tallied_launches():
+    """Within: this thread's launches go to the dict yielded, not to the
+    counts (a CUDA graph's capture, whose launches run at its replays)."""
+    _TALLY.counts = tally = {}
+    try:
+        yield tally
+    finally:
+        _TALLY.counts = None
 
 
 def attention_plain(q, k, v, kv_lens):

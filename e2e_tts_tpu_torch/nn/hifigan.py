@@ -126,6 +126,8 @@ class _GeneratorTrunk(nn.Module):
 class HifiGanGenerator(nn.Module):
     """mel (B, T, n_mels) -> waveform (B, T * prod(rates)) in [-1, 1]."""
 
+    graph_safe = True  # serve/graphs.py may capture its call
+
     weight_norm = False
 
     def __init__(self, n_mels: int = 80, upsample_rates: Tuple[int, ...] = (8, 8, 2, 2),
@@ -176,6 +178,8 @@ class IstftNetGenerator(nn.Module):
     spectrum, magnitude ``exp`` and phase ``sin``, which
     ``models.vocoder.istft_to_audio`` inverts.  mel (B, T, n_mels) ->
     (spec, phase), each (B, n_fft // 2 + 1, T * prod(rates) + 1)."""
+
+    graph_safe = True  # serve/graphs.py may capture its call
 
     weight_norm = False
 

@@ -17,6 +17,8 @@ from .common import BatchNorm, Conv1d, dropout
 
 
 class Postnet(nn.Module):
+    graph_safe = True  # serve/graphs.py may capture its call
+
     def __init__(self, n_mel_channels: int, embedding_dim: int = 512, n_layers: int = 5,
                  kernel_size: int = 5, *, generator: torch.Generator, device=None):
         super().__init__()

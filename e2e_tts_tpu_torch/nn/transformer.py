@@ -156,19 +156,25 @@ class FFTBlock(nn.Module):
 
 
 class _Positions:
-    """Sinusoid positions cut from one cached table that grows on demand
-    (row p of the table does not depend on its length), in the compute dtype
-    (float32 for None)."""
+    """Positions cut from one cached table (``table(n, d_model)``, sinusoids
+    by default) that grows on demand (row p of the table does not depend on
+    its length), in the compute dtype (float32 for None).  The tables it
+    outgrows stay held: a CUDA graph (``serve/graphs.py``) captured over a
+    cut of one reads it at each replay."""
 
-    def __init__(self, d_model: int, dtype=None):
+    def __init__(self, d_model: int, dtype=None, table=sinusoid_table):
         self.d_model = d_model
         self.dtype = dtype
+        self.make = table
         self.table = None
+        self.outgrown = []
 
     def __call__(self, T: int, device) -> torch.Tensor:
         if self.table is None or self.table.shape[0] < T or self.table.device != device:
             n = max(T, 0 if self.table is None else self.table.shape[0])
-            table = torch.from_numpy(sinusoid_table(max(n, 1), self.d_model))
+            table = torch.from_numpy(self.make(max(n, 1), self.d_model))
+            if self.table is not None:
+                self.outgrown.append(self.table)
             self.table = cast(table, self.dtype).to(device)
         return self.table[:T]
 
@@ -176,6 +182,8 @@ class _Positions:
 class TransformerEncoder(nn.Module):
     """Phoneme encoder: embedding (row 0 is padding) + sinusoid positions +
     N FFT blocks.  Returns (x, raw embeddings)."""
+
+    graph_safe = True  # serve/graphs.py may capture its call
 
     def __init__(self, n_symbols: int, n_layers: int, d_model: int, n_head: int,
                  d_inner: int, kernel_sizes: Tuple[int, int] = (9, 1),
@@ -200,6 +208,8 @@ class TransformerEncoder(nn.Module):
 
 class TransformerDecoder(nn.Module):
     """Mel decoder over frame-rate sequences.  Returns (x, mask)."""
+
+    graph_safe = True  # serve/graphs.py may capture its call
 
     def __init__(self, n_layers: int, d_model: int, n_head: int, d_inner: int,
                  kernel_sizes: Tuple[int, int] = (9, 1), use_flash: bool = False,

@@ -32,8 +32,9 @@ from ..ops import (
     regulate_length,
     sequence_mask,
 )
-from .common import (HALF, Conv1d, Embedding, LayerNorm, Linear, cast, compute_dtype, dropout,
+from .common import (HALF, Conv1d, Embedding, LayerNorm, Linear, compute_dtype, dropout,
                      grad_scale, t2t_sinusoid, weak)
+from .transformer import _Positions
 
 NEG_INF = -1e9
 
@@ -120,6 +121,8 @@ class DurationPredictor(nn.Module):
     tree: n_chans = filter_size, no mask between layers, eps 1e-5).  The
     output is masked in both."""
 
+    graph_safe = True  # serve/graphs.py may capture its call
+
     def __init__(self, d_in: int, n_chans: int, n_layers: int = 2, kernel_size: int = 3,
                  dropout: float = 0.5, padding: str = "SAME", style: str = "espnet", *,
                  generator: torch.Generator, device=None, dtype=None):
@@ -146,6 +149,8 @@ class VariancePredictor(nn.Module):
     The table is in the compute dtype; scaled by the float32 ``pos_alpha``
     the sum is float32 until the first convolution casts it, as in JAX."""
 
+    graph_safe = True  # serve/graphs.py may capture its call
+
     def __init__(self, d_in: int, n_chans: int, n_layers: int, kernel_size: int, odim: int,
                  dropout: float = 0.5, *, generator: torch.Generator, device=None, dtype=None):
         super().__init__()
@@ -154,10 +159,10 @@ class VariancePredictor(nn.Module):
         self.stack = ConvPredictorStack(d_in, n_chans, n_layers, kernel_size, odim,
                                         dropout=dropout, generator=generator, device=device,
                                         dtype=dtype)
+        self._pos = _Positions(d_in, self.dtype, t2t_sinusoid)
 
     def forward(self, x, rng: Optional[torch.Generator] = None):
-        T = x.shape[1]
-        pos = cast(torch.from_numpy(t2t_sinusoid(T + 1, x.shape[-1])), self.dtype).to(x.device)
+        pos = self._pos(x.shape[1] + 1, x.device)
         nonpad = (x.abs().sum(-1) > 0).to(torch.int64)
         positions = torch.cumsum(nonpad, dim=1) * nonpad
         return self.stack(x + self.pos_alpha * pos[positions], None, rng)

@@ -36,6 +36,8 @@ Sites (the module and what each span covers):
   (``DEVICE_WAIT``), ``engine.drain`` with counter
   ``engine.rerender_rows``, counter ``engine.cold_shape``; ``synthesize``'s
   ``request.frontend`` and ``request.stitch``;
+- ``serve/graphs.py``: counters ``graph.replay`` or ``graph.eager`` (one a
+  call of a graphed serving module) and ``graph.capture``;
 - ``utils/prefetch.py``: ``train.batch_wait`` (the consumer in ``q.get()``;
   ``WAIT``);
 - ``data/dataset.py``: ``data.batch`` (one acoustic batch made) and its

@@ -5,10 +5,15 @@ every matrix product and convolution (attention's q k^T and its weighted
 sum of v included); not counted: softmax, norms, activations, embeddings
 and the inverse STFT, each a few FLOPs an element.  Training is the forward
 pass plus a backward pass of twice its FLOPs (3x), recomputation not
-counted.
+counted.  An encoder or decoder layer is its block family's: ``_fft_layer``
+for the transformer, ``layer(n, d, blk)`` of ``blocks/<block_type>.py``
+(``blk`` the family's block of the configuration) for any other, under the
+same rules.
 """
 
 from __future__ import annotations
+
+import importlib
 
 
 def _fft_layer(n: int, d: int, f: int, k1: int, k2: int) -> float:
@@ -17,18 +22,26 @@ def _fft_layer(n: int, d: int, f: int, k1: int, k2: int) -> float:
     return 8.0 * n * d * d + 4.0 * n * n * d + 2.0 * n * f * d * (k1 + k2)
 
 
+def block_layer(n: int, d: int, fs2: dict) -> float:
+    """One encoder or decoder layer of the configuration's block family over
+    n positions at width d."""
+    block_type = fs2["building_block"]["block_type"]
+    blk = fs2["building_block"][block_type]
+    if block_type == "transformer":
+        return _fft_layer(n, d, blk["conv_filter_size"], *blk["conv_kernel_size"])
+    return importlib.import_module(f"{__package__}.blocks.{block_type}").layer(n, d, blk)
+
+
 def _conv(n: int, c_in: int, c_out: int, k: int) -> float:
     return 2.0 * n * c_in * c_out * k
 
 
 def acoustic_stage1(L: int, config: dict) -> float:
     fs2 = config["models"]["fastspeech2"]
-    blk = fs2["building_block"][fs2["building_block"]["block_type"]]
-    d, f = fs2["encoder_hidden"], blk["conv_filter_size"]
-    k1, k2 = blk["conv_kernel_size"]
+    d = fs2["encoder_hidden"]
     vp = fs2["variance"]["variance_predictor"]
     n_mels = config["audio"]["mel"]["channels"]
-    total = fs2["encoder_layers"] * _fft_layer(L, d, f, k1, k2)
+    total = fs2["encoder_layers"] * block_layer(L, d, fs2)
     # duration predictor: n_mels channels, then a 1-wide head
     kd = vp["dur_predictor_kernel"]
     total += _conv(L, d, n_mels, kd) + (vp["dur_predictor_layers"] - 1) * _conv(L, n_mels, n_mels, kd)
@@ -42,13 +55,11 @@ def acoustic_stage1(L: int, config: dict) -> float:
 
 def acoustic_stage2(T: int, config: dict) -> float:
     fs2 = config["models"]["fastspeech2"]
-    blk = fs2["building_block"][fs2["building_block"]["block_type"]]
-    d, f = fs2["decoder_hidden"], blk["conv_filter_size"]
-    k1, k2 = blk["conv_kernel_size"]
+    d = fs2["decoder_hidden"]
     n_mels = config["audio"]["mel"]["channels"]
     pn = fs2["postnet"]
     e, k, n = pn["embedding_dim"], pn["kernel_size"], pn["conv_layers"]
-    total = fs2["decoder_layers"] * _fft_layer(T, d, f, k1, k2) + _conv(T, d, n_mels, 1)
+    total = fs2["decoder_layers"] * block_layer(T, d, fs2) + _conv(T, d, n_mels, 1)
     total += _conv(T, n_mels, e, k) + (n - 2) * _conv(T, e, e, k) + _conv(T, e, n_mels, k)
     return total
 

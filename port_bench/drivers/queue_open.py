@@ -63,13 +63,14 @@ def run(run) -> Outcome:
     warm_seed = run.seed + 7919
     n_warm = max(1, int(round(mix["rate"] * mix["warmup_seconds"])))
     warm_due = poisson_due_times(mix["rate"], mix["warmup_seconds"], warm_seed,
-                                 mix.get("slice_requests"))
+                                 mix.get("slice_requests"), mix.get("slices_seed"))
     futures, _, _ = _send(server, make_texts(mix, n_warm, warm_seed),
                           speakers_of(mix, n_warm, warm_seed), warm_due, silence,
                           time.perf_counter())
     _wait(futures, time.perf_counter() + LATE_LIMIT_S)
 
-    due = poisson_due_times(mix["rate"], run.seconds, run.seed, mix.get("slice_requests"))
+    due = poisson_due_times(mix["rate"], run.seconds, run.seed, mix.get("slice_requests"),
+                            mix.get("slices_seed"))
     n = len(due)
     texts, speakers = make_texts(mix, n, run.seed), speakers_of(mix, n, run.seed)
     cycles0 = server.n_cycles

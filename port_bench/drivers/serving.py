@@ -47,23 +47,28 @@ def build_engine(cfg_file: dict, seed: int, device):
 def warm_shapes(engine, warm: dict) -> None:
     """Run each stage-1 shape (rows x text bucket) and each stage-2 and
     vocoder shape (rows x mel bucket up to ``mel_max``) that the mix's
-    ``warm`` block names once, so that their first calls (the kernels'
-    build, cuDNN's and cuFFT's plans, the allocator's blocks) fall in set-up."""
+    ``warm`` block names ``calls`` times (default once), so that their
+    first calls (the kernels' build, cuDNN's and cuFFT's plans, the
+    allocator's blocks) fall in set-up.  The engine graphs a serving
+    module at a shape's second call (``serve/graphs.py``): with ``calls``
+    2 those captures fall in set-up too, and none holds the window's
+    replays behind its lock."""
     from e2e_tts_tpu_torch.models.vocoder import vocode
 
     ac, dev = engine.acoustic, engine.device
     H = ac.encoder.src_word_emb.weight.shape[1]
-    for L in warm["text_buckets"]:
-        for B in warm["stage1_rows"]:
-            texts = torch.full((B, L), 5, dtype=torch.int64, device=dev)
-            ac.synthesize_stage1(torch.zeros(B, dtype=torch.int64, device=dev), texts,
-                                 torch.full((B,), L, dtype=torch.int64, device=dev))
-    for T in range(128, warm["mel_max"] + 1, 128):
-        for B in warm["stage2_rows"]:
-            x = torch.zeros(B, 8, H, device=dev)
-            d = torch.full((B, 8), T // 8, dtype=torch.int32, device=dev)
-            mel, _ = ac.synthesize_stage2(x, d, max_mel_len=T)
-            vocode(engine.vocoder, mel, engine.config, engine.vocoder_kind)
+    for _ in range(warm.get("calls", 1)):
+        for L in warm["text_buckets"]:
+            for B in warm["stage1_rows"]:
+                texts = torch.full((B, L), 5, dtype=torch.int64, device=dev)
+                ac.synthesize_stage1(torch.zeros(B, dtype=torch.int64, device=dev), texts,
+                                     torch.full((B,), L, dtype=torch.int64, device=dev))
+        for T in range(128, warm["mel_max"] + 1, 128):
+            for B in warm["stage2_rows"]:
+                x = torch.zeros(B, 8, H, device=dev)
+                d = torch.full((B, 8), T // 8, dtype=torch.int32, device=dev)
+                mel, _ = ac.synthesize_stage2(x, d, max_mel_len=T)
+                vocode(engine.vocoder, mel, engine.config, engine.vocoder_kind)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
@@ -172,6 +177,7 @@ def counters(host: Dict, cfg_file: dict, cycles: int = 0) -> Dict:
     config, kind = cfg_file["config"], cfg_file["vocoder"]
     fs2 = config["models"]["fastspeech2"]
     d_enc, d_dec = fs2["encoder_hidden"], fs2["decoder_hidden"]
+    flash = fs2["building_block"]["block_type"] == "transformer"
     hop, sr = config["audio"]["stft"]["hop_length"], config["audio"]["signal"]["sampling_rate"]
     rows = frames = decoder_bt = 0
     model_flops = flash_flops = flash_bytes = 0.0
@@ -186,19 +192,19 @@ def counters(host: Dict, cfg_file: dict, cycles: int = 0) -> Dict:
             rows += 1
             frames += int(totals[r])
             model_flops += model.serve_row(int(lens[r]), int(totals[r]), config, kind)
-        if L >= FLASH_MIN_LEN:
+        if flash and L >= FLASH_MIN_LEN:
             f, b = kernels.flash(lens.tolist(), d_enc)
             flash_flops += fs2["encoder_layers"] * f
             flash_bytes += fs2["encoder_layers"] * b
             flash_calls += fs2["encoder_layers"]
-        if rec["T"] >= FLASH_MIN_LEN:
+        if flash and rec["T"] >= FLASH_MIN_LEN:
             f, b = kernels.flash(rec["mel_lens"].tolist(), d_dec)
             flash_flops += fs2["decoder_layers"] * f
             flash_bytes += fs2["decoder_layers"] * b
             flash_calls += fs2["decoder_layers"]
     for b_rows, t, mel_lens in host["rerenders"]:
         decoder_bt += b_rows * t
-        if t >= FLASH_MIN_LEN:
+        if flash and t >= FLASH_MIN_LEN:
             f, b = kernels.flash(mel_lens.tolist(), d_dec)
             flash_flops += fs2["decoder_layers"] * f
             flash_bytes += fs2["decoder_layers"] * b
@@ -209,5 +215,6 @@ def counters(host: Dict, cfg_file: dict, cycles: int = 0) -> Dict:
 
 
 # attention over at least this many positions runs the flash kernel (the
-# port's transformer at its default ``use_flash``)
+# port's transformer at its default ``use_flash``; no other block family
+# launches it)
 FLASH_MIN_LEN = 256

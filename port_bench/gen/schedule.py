@@ -9,6 +9,11 @@ A mix may deal its gaps and lengths over slices of ``slice_requests``
 requests (``dealt``): every slice then holds one of each stratum, and the
 seed draws the order within it, so no seed crowds its longest requests or
 its shortest gaps into one part of the window.
+A mix that also gives ``slices_seed`` deals its gaps and lengths from that
+fixed seed, cuts the window into blocks of ``slice_requests`` consecutive
+requests, each with its gaps and lengths, and lets the seed draw the
+blocks' order (``arranged``): every seed then runs the same bursts behind
+the same long requests, at other times of the window.
 The driver records each request's due time and how late it was sent.
 """
 
@@ -39,12 +44,29 @@ def dealt(n: int, slice_requests: Optional[int], rng: np.random.Generator) -> np
     return np.concatenate(dealt_slices(n, slice_requests, rng))
 
 
+def arranged(n: int, slice_requests: Optional[int], seed: int, stream: int,
+             slices_seed: Optional[int] = None) -> np.ndarray:
+    """The order of the ranks 0..n-1 of a mix's sorted gaps (``stream`` 3)
+    or lengths (``stream`` 1) for ``seed``: ``dealt`` from the seed's own
+    generator; with ``slices_seed``, ``dealt`` from that fixed seed's, then
+    cut into blocks of ``slice_requests`` consecutive requests that are put
+    in an order the seed draws, the same for both streams, so each block
+    keeps its gaps beside its lengths."""
+    if slices_seed is None:
+        return dealt(n, slice_requests, np.random.default_rng([seed, stream]))
+    base = dealt(n, slice_requests, np.random.default_rng([slices_seed, stream]))
+    blocks = [base[i:i + slice_requests] for i in range(0, n, slice_requests)]
+    order = np.random.default_rng([seed, 4]).permutation(len(blocks))
+    return np.concatenate([blocks[j] for j in order])
+
+
 def poisson_due_times(rate: float, seconds: float, seed: int,
-                      slice_requests: Optional[int] = None) -> np.ndarray:
+                      slice_requests: Optional[int] = None,
+                      slices_seed: Optional[int] = None) -> np.ndarray:
     """Due times in seconds from the window's start, sorted, the first at 0."""
     n = max(1, int(round(rate * seconds)))
     q = (np.arange(n) + 0.5) / n
     gaps = -np.log1p(-q) / rate
-    gaps = gaps[dealt(n, slice_requests, np.random.default_rng([seed, 3]))]
+    gaps = gaps[arranged(n, slice_requests, seed, 3, slices_seed)]
     due = np.cumsum(gaps) - gaps[0]
     return due * (seconds / gaps.sum())

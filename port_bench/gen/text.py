@@ -5,8 +5,9 @@ Sentences are syllables drawn from ``syllables.txt`` (the syllables of
 a comma every few syllables and a full stop at the end.  A mix file states
 the distribution of lengths; the set of lengths of a run is the mix's own
 (stratified quantiles of that distribution), and the seed draws their order
-and the words, so runs on different seeds do the same amount of work.  No
-two texts of a run are equal.
+(or, with the mix's ``slices_seed``, the order of fixed slices of them:
+``schedule.arranged``) and the words, so runs on different seeds do the
+same amount of work.  No two texts of a run are equal.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from .schedule import dealt
+from .schedule import arranged, dealt
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -32,11 +33,13 @@ def _stratified(n: int, ppf) -> np.ndarray:
     return np.array([ppf((i + 0.5) / n) for i in range(n)])
 
 
-def lengths(spec: dict, n: int, rng: np.random.Generator,
-            slice_requests: Optional[int] = None) -> np.ndarray:
+def lengths(spec: dict, n: int, rng: Optional[np.random.Generator],
+            slice_requests: Optional[int] = None,
+            order: Optional[np.ndarray] = None) -> np.ndarray:
     """n integer lengths (characters, or syllables for ``unit: syllables``)
     from a mix's ``length`` spec, in an order drawn from ``rng`` (dealt over
-    slices of ``slice_requests``, where given; ``schedule.dealt``):
+    slices of ``slice_requests``, where given; ``schedule.dealt``) or in the
+    ``order`` given (``schedule.arranged``):
     ``{"dist": "lognormal", "median": m, "sigma": s, "min": a, "max": b}`` or
     ``{"dist": "uniform", "min": a, "max": b}``."""
     lo, hi = spec["min"], spec["max"]
@@ -48,7 +51,7 @@ def lengths(spec: dict, n: int, rng: np.random.Generator,
     else:
         raise ValueError(f"unknown length distribution {spec['dist']!r}")
     vals = np.clip(np.floor(vals), lo, hi).astype(int)
-    return vals[dealt(n, slice_requests, rng)]
+    return vals[dealt(n, slice_requests, rng) if order is None else order]
 
 
 class TextMaker:
@@ -108,11 +111,16 @@ def make_texts(mix: dict, n: int, seed: int) -> List[str]:
     """The n texts of a serving mix for ``seed``: ``mix["length"]`` gives
     their lengths (``unit`` "chars" or "syllables"), ``mix["sentence_syllables"]``
     the sentences' lengths, ``mix["slice_requests"]`` the slices they are
-    dealt over."""
+    dealt over and ``mix["slices_seed"]`` the fixed seed of those slices
+    (``schedule.arranged``)."""
     rng = np.random.default_rng([seed, 1])
     spec = mix["length"]
     maker = TextMaker(rng, tuple(mix.get("sentence_syllables", (6, 20))))
-    sizes = lengths(spec, n, rng, mix.get("slice_requests"))
+    if mix.get("slices_seed") is None:
+        sizes = lengths(spec, n, rng, mix.get("slice_requests"))
+    else:
+        sizes = lengths(spec, n, None, order=arranged(n, mix["slice_requests"], seed, 1,
+                                                      mix["slices_seed"]))
     if spec.get("unit", "chars") == "syllables":
         return [maker.text_of_syllables(int(k)) for k in sizes]
     return [maker.text_of_chars(int(k)) for k in sizes]

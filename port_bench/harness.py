@@ -6,8 +6,11 @@ that ``BENCHMARK.json`` gives it, the traffic mix at
 ``traffic/<traffic>.json`` (whose ``driver`` names a module of
 ``drivers/``), each per-layer metric's reader at ``metrics/<name>.py`` or,
 for a metric ``<base>.<suffix>``, ``metrics/<base>.py``, and the limits of
-the numbers that decide ``correct`` at ``limits/<workload>.json``.  Adding
-a cell, a mix or a metric adds files and entries; no file changes.
+the numbers that decide ``correct`` at ``limits/<workload>.json``, and the
+configuration's block family (``building_block.block_type``) other than the
+transformer at ``reference/blocks/<block_type>.py`` (its stacks) and
+``counts/blocks/<block_type>.py`` (its layer's FLOPs).  Adding a cell, a
+mix, a metric or a block family adds files and entries; no file changes.
 """
 
 from __future__ import annotations
@@ -53,6 +56,16 @@ def metric_reader_path(name: str) -> Optional[str]:
     return None
 
 
+def family_files(config: dict) -> List[str]:
+    """The files of the configuration's block family: none for the
+    transformer, which ``reference/fs2.py`` and ``counts/model.py`` hold."""
+    block_type = config["models"]["fastspeech2"]["building_block"]["block_type"]
+    if block_type == "transformer":
+        return []
+    return [os.path.join(HERE, sub, "blocks", f"{block_type}.py")
+            for sub in ("reference", "counts")]
+
+
 def cell_metrics(bench: dict, workload: str):
     """(end-to-end, per-layer) metric entries that the cell reports."""
     def listed(m):
@@ -83,8 +96,12 @@ def plan(bench: dict, workload: str, root: str = ROOT) -> Plan:
         readers[m["name"]] = path
     limits_path = os.path.join(HERE, "limits", f"{workload}.json")
     limits = _json(limits_path)["limits"] if os.path.exists(limits_path) else {}
-    return Plan(cell, _json(os.path.join(root, cfg["file"])), mix, mix["driver"], e2e, layer,
-                limits, readers)
+    config_file = _json(os.path.join(root, cfg["file"]))
+    family = family_files(config_file["config"])
+    if not all(os.path.exists(path) for path in family):
+        raise FileNotFoundError(f"configuration {cfg['name']!r} needs its block family's "
+                                f"{' and '.join(family)}, and not both are there")
+    return Plan(cell, config_file, mix, mix["driver"], e2e, layer, limits, readers)
 
 
 def load_reader(path: str):

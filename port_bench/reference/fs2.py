@@ -1,7 +1,9 @@
 """Plain-PyTorch FastSpeech2 (Ren et al., arXiv:2006.04558) as the
-configuration files state it: an FFT encoder and decoder (post-LN
-transformer blocks: multi-head self-attention, then a two-convolution
-feed-forward network), phoneme-level pitch (f0 with a voiced/unvoiced
+configuration files state it: an encoder and a decoder of the
+configuration's block family (the transformer's FFT blocks here: post-LN
+multi-head self-attention, then a two-convolution feed-forward network;
+any other family's stack in ``blocks/<block_type>.py``, found by name),
+phoneme-level pitch (f0 with a voiced/unvoiced
 logit) and energy from convolutional predictors with sinusoidal positions,
 a log-duration predictor, a 5-layer convolutional postnet, and for
 training the unsupervised aligner of "One TTS Alignment To Rule Them All"
@@ -17,6 +19,7 @@ that a generator seeded as the training state's gives the same masks.
 
 from __future__ import annotations
 
+import importlib
 import math
 from typing import Dict, Optional
 
@@ -95,6 +98,26 @@ def fft_block(P, name, x, mask, heads, rate, drop):
     return layer_norm(P, f"{f}.layer_norm", h + x, 1e-5) * mask[..., None]
 
 
+def transformer_stack(P, prefix, x, mask, blk, n_layers, side, drop, train):
+    """The transformer family: sinusoid positions added, padded rows zeroed,
+    then ``fft_block`` layer by layer (no BatchNorm: ``train`` changes
+    nothing)."""
+    pos = torch.from_numpy(sinusoid_table(x.shape[1], x.shape[2])).to(x.device)
+    x = (x + pos[None]) * mask[..., None]
+    for i in range(n_layers):
+        x = fft_block(P, f"{prefix}.layers.{i}", x, mask, blk[f"{side}_head"],
+                      blk[f"{side}_dropout"], drop)
+    return x
+
+
+def block_stack(block_type: str):
+    """The encoder and decoder stack of a block family: the transformer's
+    here, any other's ``stack`` in ``blocks/<block_type>.py``."""
+    if block_type == "transformer":
+        return transformer_stack
+    return importlib.import_module(f"{__package__}.blocks.{block_type}").stack
+
+
 def predictor(P, name, x, n_layers, rate, drop, eps, mask=None):
     """conv -> relu -> LayerNorm -> dropout (-> mask) per layer, then a linear head."""
     for i in range(n_layers):
@@ -122,11 +145,11 @@ class FastSpeech2:
     def __init__(self, P: Dict[str, torch.Tensor], config: dict, stats: dict):
         self.P = P
         fs2 = config["models"]["fastspeech2"]
-        blk = fs2["building_block"][fs2["building_block"]["block_type"]]
+        block_type = fs2["building_block"]["block_type"]
+        self.blk = fs2["building_block"][block_type]
+        self.stack = block_stack(block_type)
         var = fs2["variance"]
-        self.heads = (blk["encoder_head"], blk["decoder_head"])
         self.layers = (fs2["encoder_layers"], fs2["decoder_layers"])
-        self.rates = (blk["encoder_dropout"], blk["decoder_dropout"])
         vp = var["variance_predictor"]
         self.vp = vp
         self.temperature = var["duration_modelling"]["aligner_temperature"]
@@ -141,21 +164,15 @@ class FastSpeech2:
 
     # --- blocks ------------------------------------------------------------------
 
-    def encode(self, tokens, mask, drop):
-        P = self.P
-        d = P["encoder.src_word_emb.weight"].shape[1]
-        pos = torch.from_numpy(sinusoid_table(tokens.shape[1], d)).to(tokens.device)
-        x = (F.embedding(tokens, P["encoder.src_word_emb.weight"]) + pos[None]) * mask[..., None]
-        for i in range(self.layers[0]):
-            x = fft_block(P, f"encoder.layers.{i}", x, mask, self.heads[0], self.rates[0], drop)
-        return x
+    def encode(self, tokens, mask, drop, train):
+        """(the encoder's output, the token embeddings the aligner reads)."""
+        emb = F.embedding(tokens, self.P["encoder.src_word_emb.weight"])
+        return self.stack(self.P, "encoder", emb, mask, self.blk, self.layers[0], "encoder", drop,
+                          train), emb
 
-    def decode(self, x, mask, drop):
-        pos = torch.from_numpy(sinusoid_table(x.shape[1], x.shape[2])).to(x.device)
-        x = (x + pos[None]) * mask[..., None]
-        for i in range(self.layers[1]):
-            x = fft_block(self.P, f"decoder.layers.{i}", x, mask, self.heads[1], self.rates[1], drop)
-        return x
+    def decode(self, x, mask, drop, train):
+        return self.stack(self.P, "decoder", x, mask, self.blk, self.layers[1], "decoder", drop,
+                          train)
 
     def postnet(self, mel, drop, train=False):
         P, x = self.P, mel.transpose(1, 2)
@@ -215,7 +232,7 @@ class FastSpeech2:
         lens = (tokens != 0).sum(-1)
         mask = torch.arange(tokens.shape[1], device=tokens.device)[None] < lens[:, None]
         nodrop = Dropout(None)
-        x = self.encode(tokens, mask, nodrop)
+        x, _ = self.encode(tokens, mask, nodrop, train=False)
         x = x + F.embedding(speakers, self.P["speaker_emb.weight"])[:, None]
         log_d = self.durations(x, mask, nodrop)
         # the predictors read x through the gradient scaling, equal in value
@@ -238,7 +255,7 @@ class FastSpeech2:
         mel_lens = torch.clamp(durations.sum(-1), max=T)
         mask = t < mel_lens[:, None]
         nodrop = Dropout(None)
-        dec = self.decode(xm * mask[..., None], mask, nodrop)
+        dec = self.decode(xm * mask[..., None], mask, nodrop, train=False)
         mel = linear(self.P, "mel_linear", dec)
         return self.postnet(mel, nodrop), mel_lens
 
@@ -268,12 +285,7 @@ class FastSpeech2:
         txt_mask = torch.arange(batch["texts"].shape[1], device=dev)[None] < batch["txt_lens"][:, None]
         T = batch["mel"].shape[1]
         mel_mask = torch.arange(T, device=dev)[None] < batch["mel_lens"][:, None]
-        emb = F.embedding(batch["texts"], P["encoder.src_word_emb.weight"])
-        d = emb.shape[-1]
-        pos = torch.from_numpy(sinusoid_table(batch["texts"].shape[1], d)).to(emb.device)
-        x = (emb + pos[None]) * txt_mask[..., None]
-        for i in range(self.layers[0]):
-            x = fft_block(P, f"encoder.layers.{i}", x, txt_mask, self.heads[0], self.rates[0], drop)
+        x, emb = self.encode(batch["texts"], txt_mask, drop, train=True)
         spk = F.embedding(batch["speakers"], P["speaker_emb.weight"])
         x = x + spk[:, None]
         g = self.predictor_grad
@@ -305,7 +317,7 @@ class FastSpeech2:
             x = torch.einsum("btl,blh->bth", soft, x)
         else:
             x = torch.gather(x, 1, mel2ph[..., None].expand(-1, -1, x.shape[-1])) * mel_mask[..., None]
-        dec = self.decode(x, mel_mask, drop)
+        dec = self.decode(x, mel_mask, drop, train=True)
         mel = linear(P, "mel_linear", dec)
         post = self.postnet(mel, drop, train=True)
         return dict(mel=mel, postnet=post, log_d=log_d, dur=dur, pitch=pitch_pred, energy=energy_pred,

@@ -75,7 +75,8 @@ def main(argv=None) -> int:
     rows = []
     for k, rate in enumerate([a.rates[0]] + list(a.rates)):  # the first pass warms up
         seed = a.seed + 1000 * k
-        due = poisson_due_times(rate, a.seconds, seed, plan.mix.get("slice_requests"))
+        due = poisson_due_times(rate, a.seconds, seed, plan.mix.get("slice_requests"),
+                                plan.mix.get("slices_seed"))
         n = len(due)
         texts, spk = make_texts(plan.mix, n, seed), speakers_of(plan.mix, n, seed)
         recorder.clear()

@@ -70,3 +70,55 @@ def test_training_is_three_forward_passes():
     cfg = _config()
     fwd = model.acoustic_stage1(40, cfg) + model.acoustic_stage2(300, cfg) + model.aligner(40, 300, cfg)
     assert model.train_row(40, 300, cfg) == pytest.approx(3 * fwd)
+
+
+def _config_of(name):
+    with open(os.path.join(harness.HERE, "configs", f"{name}.json")) as f:
+        return json.load(f)["config"]
+
+
+# serve_row and train_row of the shipped configurations as the harness counted
+# them before the block families were resolved by name
+PINNED = [
+    ("fs2_hifigan_v1", "hifigan", 7, 40, 27504106592.0, 8874052128.0),
+    ("fs2_hifigan_v1", "hifigan", 61, 433, 298476157472.0, 98275442112.0),
+    ("fs2_hifigan_v1", "hifigan", 250, 1987, 1396828813376.0, 533294933760.0),
+    ("fs2_istftnet_c8c8i", "istft", 7, 40, 19403201632.0, 8874052128.0),
+    ("fs2_istftnet_c8c8i", "istft", 61, 433, 210783861280.0, 98275442112.0),
+    ("fs2_istftnet_c8c8i", "istft", 250, 1987, 994416359488.0, 533294933760.0),
+]
+
+
+@pytest.mark.parametrize("name,kind,L,T,serve,train", PINNED)
+def test_the_transformers_rows_are_as_pinned(name, kind, L, T, serve, train):
+    cfg = _config_of(name)
+    assert model.serve_row(L, T, cfg, kind) == serve
+    assert model.train_row(L, T, cfg) == train
+
+
+def test_a_conformer_layer_by_hand():
+    from port_bench.counts.blocks import conformer
+
+    blk = {"ffn_expansion_factor": 4, "conv_expansion_factor": 2, "conv_kernel_size": 31}
+    n, d = 3, 4
+    ffn = 2 * (2 * n * d * 16 + 2 * n * 16 * d)        # d -> 4d -> d, twice
+    projections = 5 * 2 * n * d * d                     # q, k, v, out, pos
+    scores = 3 * 2 * n * n * d                          # content, position, weighted sum
+    conv = 2 * n * d * 8 + 2 * n * d * 31 + 2 * n * d * d  # pw1 (d -> 2d), depthwise, pw2
+    assert conformer.layer(n, d, blk) == ffn + projections + scores + conv == 3264
+
+
+def test_a_conformer_configuration_counts_its_own_layers():
+    from port_bench.counts.blocks import conformer
+
+    trans = _config()
+    conf = copy.deepcopy(trans)
+    fs2 = conf["models"]["fastspeech2"]
+    fs2["building_block"]["block_type"] = "conformer"
+    blk, d = fs2["building_block"]["conformer"], fs2["decoder_hidden"]
+    per_layer = conformer.layer(900, d, blk) - model._fft_layer(900, d, 1024, 9, 1)
+    assert model.acoustic_stage2(900, conf) - model.acoustic_stage2(900, trans) == pytest.approx(
+        fs2["decoder_layers"] * per_layer)
+    assert model.train_row(40, 900, conf) == pytest.approx(
+        3 * (model.acoustic_stage1(40, conf) + model.acoustic_stage2(900, conf)
+             + model.aligner(40, 900, conf)))

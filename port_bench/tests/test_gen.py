@@ -119,3 +119,31 @@ def test_sliced_mix_deals_each_length_and_gap_stratum_over_every_slice():
     a = text.lengths(spec, n, np.random.default_rng([BIG, 1]), m)
     b = text.lengths(spec, n, np.random.default_rng([BIG + 1, 1]), m)
     assert sorted(a) == sorted(b) == sorted(plain) and list(a) != list(b)
+
+
+def test_fixed_slices_keep_their_gaps_beside_their_lengths_in_an_order_the_seed_draws():
+    mix = _mix("mixed_open")
+    m, fixed, spec = mix["slice_requests"], mix["slices_seed"], mix["length"]
+    n = int(round(mix["rate"] * 51))
+    ranks = [schedule.dealt(n, m, np.random.default_rng([fixed, s])) for s in (1, 3)]
+    pairs = list(zip(*ranks))  # (length rank, gap rank) of each request, as the fixed seed deals
+    blocks = {pairs[i]: pairs[i:i + m] for i in range(0, n, m)}  # by their first request
+
+    def block_order(seed):
+        got, i, order = list(zip(*(schedule.arranged(n, m, seed, s, fixed) for s in (1, 3)))), 0, []
+        while i < n:
+            block = blocks[got[i]]
+            assert got[i:i + len(block)] == block
+            order.append(got[i])
+            i += len(block)
+        return order
+
+    a, b = block_order(BIG), block_order(BIG + 1)
+    assert sorted(a) == sorted(blocks) == sorted(b) and a != b and a == block_order(BIG)
+    order = schedule.arranged(n, m, BIG, 1, fixed)
+    sizes = text.lengths(spec, n, None, order=order)
+    texts = text.make_texts(mix, n, BIG)
+    assert all(len(t) <= s for t, s in zip(texts, sizes)) and texts != text.make_texts(mix, n, BIG + 1)
+    q = -np.log1p(-(np.arange(n) + 0.5) / n) / mix["rate"]
+    due = schedule.poisson_due_times(mix["rate"], 51.0, BIG, m, fixed)
+    assert np.allclose(np.diff(due), (q[schedule.arranged(n, m, BIG, 3, fixed)] * 51.0 / q.sum())[1:])

@@ -53,7 +53,9 @@ def test_nothing_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_port():
-    for path in _sources("reference"):
+    paths = list(_sources("reference"))
+    assert os.path.join(PB, "reference", "blocks", "conformer.py") in paths  # the families too
+    for path in paths:
         tops = {m.split(".")[0] for m in _imports(path)}
         assert "e2e_tts_tpu_torch" not in tops, path
 
@@ -118,6 +120,15 @@ def test_a_new_mix_and_a_new_metric_resolve_as_new_files():
     assert before == {p: os.path.getmtime(p) for p in _sources()}
 
 
+def test_a_block_family_without_its_files_fails_in_the_plan(tmp_path):
+    bench = tiny.tiny_bench(str(tmp_path), "vie_train_acoustic", "fs2_hifigan_v1",
+                            "train_ljs_lengths", block_type="reformer")
+    with pytest.raises(FileNotFoundError) as e:
+        harness.plan(bench, "vie_train_acoustic")
+    for sub in ("reference", "counts"):
+        assert os.path.join(PB, sub, "blocks", "reformer.py") in str(e.value)
+
+
 def test_a_run_without_a_card_fails_and_prints_no_result():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     r = subprocess.run([sys.executable, "-m", "port_bench.run", "--workload", "vie_mixed_open",
@@ -134,10 +145,11 @@ TRAINING_LIMITS = {"batch_mismatch": 0, "batch_gap": 1e-6, "mas_rows_differ": 0,
                    "loss_gap": 1e-5, "grad_gap": 1e-3, "update_gap": 1e-2}
 
 
-def _run(tmp_path, monkeypatch, workload, config, traffic, mix, limits, trace=0):
+def _run(tmp_path, monkeypatch, workload, config, traffic, mix, limits, trace=0,
+         block_type=None):
     monkeypatch.setenv("TMPDIR", str(tmp_path))
     torch.set_num_threads(2)
-    bench = tiny.tiny_bench(str(tmp_path), workload, config, traffic)
+    bench = tiny.tiny_bench(str(tmp_path), workload, config, traffic, block_type)
     p = harness.plan(bench, workload)
     p.mix = dict(p.mix, **mix)
     p.limits = limits
@@ -154,10 +166,18 @@ def _serve(tmp_path, monkeypatch, trace=0):
                 SERVING_LIMITS, trace)
 
 
-def _train(tmp_path, monkeypatch):
+def _train(tmp_path, monkeypatch, block_type=None):
     return _run(tmp_path, monkeypatch, "vie_train_acoustic", "fs2_hifigan_v1",
                 "train_ljs_lengths", dict(utterances=72, seconds_range=[0.3, 1.0]),
-                TRAINING_LIMITS)
+                TRAINING_LIMITS, block_type=block_type)
+
+
+def _narrate(tmp_path, monkeypatch, block_type=None):
+    return _run(tmp_path, monkeypatch, "vie_longform_closed", "fs2_istftnet_c8c8i",
+                "longform_closed", dict(documents=6, warmup_documents=1, check_requests=2,
+                                        length=dict(dist="uniform", unit="chars", min=120,
+                                                    max=300), warm=TINY_WARM),
+                SERVING_LIMITS, block_type=block_type)
 
 
 def test_serving_run_is_correct_and_reports_its_metrics(tmp_path, monkeypatch):
@@ -247,3 +267,75 @@ def test_half_the_batch_left_out_is_not_correct(tmp_path, monkeypatch):
     monkeypatch.setattr(acoustic_step, "_losses", half)
     r = _train(tmp_path, monkeypatch)
     assert not r["correct"] and r["check"]["loss_gap"]["value"] > TRAINING_LIMITS["loss_gap"]
+
+
+# --- a second block family through the same drivers and checks ----------------------------
+
+
+def test_a_conformer_narration_run_is_correct(tmp_path, monkeypatch):
+    r = _narrate(tmp_path, monkeypatch, "conformer")
+    assert r["correct"], r["check"]
+    assert r["attempted"] >= 1 and set(r["metrics"]) == {"setup_s", "audio_s_per_s"}
+
+
+def test_a_conformer_training_run_is_correct(tmp_path, monkeypatch):
+    r = _train(tmp_path, monkeypatch, "conformer")
+    assert r["correct"], r["check"]
+    assert set(r["metrics"]) == {"setup_s", "train_utt_per_s"}
+
+
+def test_a_conformer_weight_altered_in_the_program_is_not_correct(tmp_path, monkeypatch):
+    from port_bench.drivers import serving
+
+    build = serving.build_engine
+
+    def altered(*a, **k):
+        engine, wa, wv = build(*a, **k)
+        with torch.no_grad():  # the program's relative-position bias, not the benchmark's
+            engine.acoustic.encoder.layers[0].mhsa.v_bias.add_(0.5)
+        return engine, wa, wv
+
+    monkeypatch.setattr(serving, "build_engine", altered)
+    r = _narrate(tmp_path, monkeypatch, "conformer")
+    assert not r["correct"]
+    assert r["check"]["logd_gap"]["value"] > SERVING_LIMITS["logd_gap"], r["check"]
+
+
+def test_the_flash_counters_stay_off_for_a_family_that_does_not_launch_it():
+    from port_bench.drivers import serving
+
+    tokens = torch.zeros(1, 300, dtype=torch.int64)
+    tokens[0, :280] = 7
+    host = {"records": [{"tokens": tokens, "log_d": torch.full((1, 300), 1.0), "T": 512,
+                         "mel_lens": torch.tensor([500])}],
+            "rerenders": [(1, 1024, torch.tensor([900]))]}
+    counts = {}
+    for block_type in ("transformer", "conformer"):
+        cfg = tiny.tiny_config("fs2_hifigan_v1", block_type)
+        counts[block_type] = serving.counters(host, cfg)
+    assert counts["transformer"]["flash_flops"] > 0 and counts["transformer"]["flash_calls"] == 6
+    assert counts["conformer"]["flash_flops"] == counts["conformer"]["flash_bytes"] == 0
+    assert counts["conformer"]["model_flops"] > 0
+
+
+# --- set-up ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("calls", [1, 2])
+def test_the_warm_sweep_runs_each_shape_as_many_times_as_the_mix_asks(calls):
+    from port_bench.drivers import serving
+
+    engine, _, _ = serving.build_engine(tiny.tiny_config(), 3, torch.device("cpu"))
+    seen = {"encoder": [], "vocoder": []}
+    for name, module in (("encoder", engine.acoustic.encoder), ("vocoder", engine.vocoder)):
+        module.register_forward_hook(lambda m, a, o, name=name: seen[name].append(a[0].shape))
+    serving.warm_shapes(engine, dict(TINY_WARM, calls=calls))
+    assert seen["encoder"] == [torch.Size([2, 32])] * calls
+    assert sorted(seen["vocoder"]) == sorted([torch.Size([b, t, 80]) for b in (1, 2)
+                                              for t in (128, 256)] * calls)
+
+
+def test_the_open_mix_captures_its_graphs_in_set_up():
+    with open(os.path.join(PB, "traffic", "mixed_open.json"), encoding="utf8") as f:
+        warm = json.load(f)["warm"]
+    assert warm["calls"] >= 2  # a serving module's graph is captured at a shape's second call

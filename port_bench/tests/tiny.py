@@ -12,13 +12,20 @@ import os
 from port_bench import harness
 
 
-def tiny_config(name: str = "fs2_hifigan_v1") -> dict:
+def tiny_config(name: str = "fs2_hifigan_v1", block_type: str = None) -> dict:
+    """The configuration file ``name``, narrowed, on the block family
+    ``block_type`` (None: the file's own)."""
     with open(os.path.join(harness.HERE, "configs", f"{name}.json"), encoding="utf8") as f:
         cfg = json.load(f)
     c = cfg["config"]
     fs2 = c["models"]["fastspeech2"]
     fs2.update(encoder_layers=2, decoder_layers=2, encoder_hidden=32, decoder_hidden=32)
-    fs2["building_block"]["transformer"]["conv_filter_size"] = 64
+    bb = fs2["building_block"]
+    if block_type is not None:
+        bb["block_type"] = block_type
+    blk = bb[bb["block_type"]]
+    if "conv_filter_size" in blk:  # the families with a convolutional FFN
+        blk["conv_filter_size"] = 64
     fs2["variance"]["variance_predictor"]["filter_size"] = 32
     fs2["postnet"]["embedding_dim"] = 32
     for voc in ("hifigan", "istft"):
@@ -26,15 +33,15 @@ def tiny_config(name: str = "fs2_hifigan_v1") -> dict:
     return cfg
 
 
-def tiny_bench(tmp_path, workload: str, config_name: str, traffic: str, metrics=(),
-               extra_mix: dict = None) -> dict:
-    """A benchmark of one cell on the narrow configuration, whose files lie
-    under ``tmp_path`` (its limits file under ``tmp_path/limits``)."""
+def tiny_bench(tmp_path, workload: str, config_name: str, traffic: str,
+               block_type: str = None) -> dict:
+    """A benchmark of one cell on the narrow configuration (on the block
+    family ``block_type``), whose file lies under ``tmp_path``."""
     with open(os.path.join(harness.ROOT, "BENCHMARK.json"), encoding="utf8") as f:
         real = json.load(f)
     cfg_path = os.path.join(tmp_path, f"{config_name}.json")
     with open(cfg_path, "w", encoding="utf8") as f:
-        json.dump(tiny_config(config_name), f)
+        json.dump(tiny_config(config_name, block_type), f)
     bench = copy.deepcopy(real)
     bench["configs"] = [{"name": config_name, "source": "test", "file": cfg_path, "reduced": [],
                          "why": "test"}]
